@@ -7,7 +7,10 @@ SFC32 per-pixel RNG, primary rays, nearest hit, the reference BRDFs, the
 inline integrator, the progressive `Renderer`, checkpoints and the CLI.
 On a CUDA device the whole sample x bounce loop is one launch of the
 megakernel in ``csrc/megakernel.cu``; on the CPU the same functions run
-as plain tensor ops.  This package imports neither JAX nor the JAX package.
+as plain tensor ops.  Inverse rendering (`loss_and_grad` of `image_loss`
+over `SceneParams`) differentiates the same trace, on a CUDA device through
+the backward megakernel in ``csrc/megakernel_vjp.cu``.  This package
+imports neither JAX nor the JAX package.
 """
 
 from .models.objects import (
@@ -41,6 +44,14 @@ from .render.integrator import (
     trace_inline,
 )
 from .render.renderer import Renderer
+from .diff.grad import (
+    SceneParams,
+    image_loss,
+    loss_and_grad,
+    params_to_scene,
+    render_radiance,
+    scene_to_params,
+)
 from .utils.config import RenderConfig
 
 __version__ = "0.1.0"

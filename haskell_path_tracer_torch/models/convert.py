@@ -8,6 +8,10 @@ which the JAX package's pytrees share, so a JAX scene converts with
 
 The SFC32 state is uint32 in numpy (and in the JAX package) and int32
 holding the same bits in torch; the conversions are views, not casts.
+
+Scene parameters for inverse rendering (`diff/grad.py:SceneParams`) cross
+as a dict of numpy arrays keyed by field name, or as any named tuple with
+the same fields, as the JAX package's `SceneParams` is.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..diff.grad import SceneParams
 from .objects import (
     Accumulator,
     Boxes,
@@ -115,4 +120,19 @@ def accumulator_from_numpy(arrays: dict, device) -> Accumulator:
         color=_tensor(arrays["color"], np.float32, device),
         rng=rng_from_numpy(arrays["rng"], device),
         iterations=int(arrays["iterations"]),
+    )
+
+
+def params_to_numpy(params) -> dict:
+    """SceneParams (this package's or the JAX package's) -> {field: f32}."""
+    return {f: to_numpy(getattr(params, f)).astype(np.float32) for f in SceneParams._fields}
+
+
+def params_from_numpy(arrays, device):
+    """{field: array} or a named tuple with SceneParams' fields ->
+    this package's SceneParams of f32 tensors on `device`."""
+    if hasattr(arrays, "_asdict"):
+        arrays = arrays._asdict()
+    return SceneParams(
+        *(_tensor(to_numpy(arrays[f]), np.float32, device) for f in SceneParams._fields)
     )

@@ -15,8 +15,9 @@ keeps the loop state in registers and the scene tables in shared memory
 
 The kernel is built at first use with nvcc into ``_build/`` beside this
 package (a shared library with a plain C entry point, bound with ctypes)
-and is named by a hash of its source and flags, so a stale build is never
-loaded.
+and is named by a hash of its sources and flags, so a stale build is never
+loaded.  The bounce itself lives in ``csrc/bounce.cuh``, which the backward
+kernel (``ops/megakernel_vjp.py``) shares.
 """
 
 from __future__ import annotations
@@ -40,7 +41,10 @@ from .brdf import INV_TWO_PI
 PI = float(np.float32(np.pi))
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "megakernel.cu")
+CSRC = os.path.join(_PKG_DIR, "csrc")
+SOURCE = os.path.join(CSRC, "megakernel.cu")
+# Headers the kernel sources include; a library's name hashes them too.
+HEADERS = (os.path.join(CSRC, "bounce.cuh"),)
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -135,13 +139,15 @@ def _resolve_has_dielectric(scene: Scene, has_dielectric):
 
 def _nearest_hit_fold(geom, mat, counts, ox, oy, oz, dx, dy, dz):
     """Where-fold over the table rows (first index wins ties); returns a
-    dict of hit planes, as the TPU kernel's `_nearest_hit_fold`."""
+    dict of hit planes, as the TPU kernel's `_nearest_hit_fold`, and the
+    winner's row `best` (-1 where every row misses)."""
     ns, npl, nb, nt = counts
     where = torch.where
     best_t = torch.full_like(ox, INFINITE)
     zero = torch.zeros_like(ox)
     b_ax, b_ay, b_az = zero, zero, zero
     b_cr, b_cg, b_cb, b_il, b_pr, b_kd, b_sp = (zero,) * 7
+    best = torch.full_like(ox, -1, dtype=torch.int64)
     for p in range(ns + npl + nb + nt):
         g, m = geom[p], mat[p]
         if p < ns:
@@ -230,6 +236,7 @@ def _nearest_hit_fold(geom, mat, counts, ox, oy, oz, dx, dy, dz):
         b_pr = where(better, m[4], b_pr)
         b_kd = where(better, m[5], b_kd)
         b_sp = where(better, is_sphere, b_sp)
+        best = where(better, p, best)
 
     hit = best_t < INFINITE
     t_safe = where(hit, best_t, 0.0)
@@ -244,7 +251,7 @@ def _nearest_hit_fold(geom, mat, counts, ox, oy, oz, dx, dy, dz):
         nx=where(is_s, sx * inv, b_ax),
         ny=where(is_s, sy * inv, b_ay),
         nz=where(is_s, sz * inv, b_az),
-        cr=b_cr, cg=b_cg, cb=b_cb, il=b_il, pr=b_pr, kd=b_kd,
+        cr=b_cr, cg=b_cg, cb=b_cb, il=b_il, pr=b_pr, kd=b_kd, best=best,
     )
 
 
@@ -311,6 +318,84 @@ def _brdf_sample_from_vec(h, dx, dy, dz, vx, vy, vz, has_dielectric):
     )
 
 
+def bounce_reference(geom, mat, counts, o, d, th, v, has_dielectric):
+    """One bounce of the plain version — the TPU kernel's `_bounce_core` —
+    on [H, W] planes: the ray o, d (3 planes each), throughput th and
+    random vector v.  Returns (next origin, next direction, next
+    throughput, emission) as 3-plane tuples, and the dead mask.  A dead
+    lane keeps its ray, adds no emission and zeroes its throughput."""
+    where = torch.where
+    ox, oy, oz = o
+    dx, dy, dz = d
+    th_r, th_g, th_b = th
+    vx, vy, vz = v
+    h = _nearest_hit_fold(geom, mat, counts, ox, oy, oz, dx, dy, dz)
+    q = th_r * th_r + th_g * th_g + th_b * th_b
+    dead = (q <= linalg.NEAR_ZERO_EPS) | ~h["hit"]
+    (no_x, no_y, no_z, nd_x, nd_y, nd_z, tm_r, tm_g, tm_b) = (
+        _brdf_sample_from_vec(h, dx, dy, dz, vx, vy, vz, has_dielectric)
+    )
+    em = (
+        where(dead, 0.0, h["cr"] * h["il"] * th_r),
+        where(dead, 0.0, h["cg"] * h["il"] * th_g),
+        where(dead, 0.0, h["cb"] * h["il"] * th_b),
+    )
+    nth = (
+        where(dead, 0.0, th_r * tm_r),
+        where(dead, 0.0, th_g * tm_g),
+        where(dead, 0.0, th_b * tm_b),
+    )
+    no = (where(dead, ox, no_x), where(dead, oy, no_y), where(dead, oz, no_z))
+    nd = (where(dead, dx, nd_x), where(dead, dy, nd_y), where(dead, dz, nd_z))
+    return no, nd, nth, em, dead
+
+
+def trace_tables_reference(
+    geom, mat, counts, rays: Rays, rng: torch.Tensor, num_bounces: int,
+    spp: int, russian_roulette: bool, rr_start: int, has_dielectric: bool,
+):
+    """Plain PyTorch version of the megakernel at the table level: packed
+    (geom, mat) tables (`scene_tables`), the per-kind `counts`, and
+    [H, W] planes.  Differentiable in geom, mat and the rays, with every
+    decision detached, so autograd through it is the plain version of the
+    backward kernel (ops/megakernel_vjp.py).
+
+    Returns (radiance sum over `spp` samples [H, W, 3] f32, final rng
+    [H, W, 4] int32)."""
+    where = torch.where
+    po = rays.origin.unbind(-1)
+    pd = rays.direction.unbind(-1)
+    acc_r = acc_g = acc_b = torch.zeros_like(po[0])
+    for _ in range(spp):
+        o, d = po, pd
+        res_r = res_g = res_b = torch.zeros_like(po[0])
+        th = (torch.ones_like(po[0]),) * 3
+        for i in range(num_bounces):
+            v, rng2 = rng_ops.gen_vec(rng)
+            o, d, nth, em, dead = bounce_reference(
+                geom, mat, counts, o, d, th, v.unbind(-1), has_dielectric
+            )
+            if russian_roulette:
+                nth_r, nth_g, nth_b = nth
+                u, rng2 = rng_ops.sfc32_float(rng2)
+                p_surv = torch.clamp(
+                    torch.maximum(nth_r, torch.maximum(nth_g, nth_b)), 0.05, 1.0
+                )
+                if i >= rr_start:
+                    killed = u >= p_surv
+                    scale = 1.0 / p_surv
+                    nth = (
+                        where(killed, 0.0, nth_r * scale),
+                        where(killed, 0.0, nth_g * scale),
+                        where(killed, 0.0, nth_b * scale),
+                    )
+            rng = where(dead[..., None], rng, rng2)
+            res_r, res_g, res_b = res_r + em[0], res_g + em[1], res_b + em[2]
+            th = nth
+        acc_r, acc_g, acc_b = acc_r + res_r, acc_g + res_g, acc_b + res_b
+    return torch.stack([acc_r, acc_g, acc_b], dim=-1), rng
+
+
 def trace_inline_fused_reference(
     scene: Scene,
     rays: Rays,
@@ -321,58 +406,15 @@ def trace_inline_fused_reference(
     rr_start: int = 3,
     has_dielectric: bool | None = None,
 ):
-    """Plain PyTorch version of the megakernel on [H, W] planes.
+    """Plain PyTorch version of the megakernel on [H, W] planes: the scene's
+    tables through `trace_tables_reference`.
 
     Returns (radiance sum over `spp` samples [H, W, 3] f32, final rng
     [H, W, 4] int32).  `has_dielectric=None` reads the scene's kinds."""
-    has_dielectric = _resolve_has_dielectric(scene, has_dielectric)
-    geom, mat = scene_tables(scene)
-    counts = primitive_counts(scene)
-    where = torch.where
-    pox, poy, poz = rays.origin.unbind(-1)
-    pdx, pdy, pdz = rays.direction.unbind(-1)
-    acc_r = acc_g = acc_b = torch.zeros_like(pox)
-    for _ in range(spp):
-        ox, oy, oz, dx, dy, dz = pox, poy, poz, pdx, pdy, pdz
-        res_r = res_g = res_b = torch.zeros_like(pox)
-        th_r = th_g = th_b = torch.ones_like(pox)
-        for i in range(num_bounces):
-            v, rng2 = rng_ops.gen_vec(rng)
-            vx, vy, vz = v.unbind(-1)
-
-            h = _nearest_hit_fold(geom, mat, counts, ox, oy, oz, dx, dy, dz)
-            q = th_r * th_r + th_g * th_g + th_b * th_b
-            dead = (q <= linalg.NEAR_ZERO_EPS) | ~h["hit"]
-            (no_x, no_y, no_z, nd_x, nd_y, nd_z, tm_r, tm_g, tm_b) = (
-                _brdf_sample_from_vec(h, dx, dy, dz, vx, vy, vz, has_dielectric)
-            )
-            em_r = where(dead, 0.0, h["cr"] * h["il"] * th_r)
-            em_g = where(dead, 0.0, h["cg"] * h["il"] * th_g)
-            em_b = where(dead, 0.0, h["cb"] * h["il"] * th_b)
-            nth_r = where(dead, 0.0, th_r * tm_r)
-            nth_g = where(dead, 0.0, th_g * tm_g)
-            nth_b = where(dead, 0.0, th_b * tm_b)
-            if russian_roulette:
-                u, rng2 = rng_ops.sfc32_float(rng2)
-                p_surv = torch.clamp(
-                    torch.maximum(nth_r, torch.maximum(nth_g, nth_b)), 0.05, 1.0
-                )
-                if i >= rr_start:
-                    killed = u >= p_surv
-                    scale = 1.0 / p_surv
-                    nth_r = where(killed, 0.0, nth_r * scale)
-                    nth_g = where(killed, 0.0, nth_g * scale)
-                    nth_b = where(killed, 0.0, nth_b * scale)
-
-            ox, oy, oz = where(dead, ox, no_x), where(dead, oy, no_y), where(dead, oz, no_z)
-            dx, dy, dz = where(dead, dx, nd_x), where(dead, dy, nd_y), where(dead, dz, nd_z)
-            rng = where(dead[..., None], rng, rng2)
-            res_r, res_g, res_b = res_r + em_r, res_g + em_g, res_b + em_b
-            th_r, th_g, th_b = nth_r, nth_g, nth_b
-        acc_r, acc_g, acc_b = acc_r + res_r, acc_g + res_g, acc_b + res_b
-    return (
-        torch.stack([acc_r, acc_g, acc_b], dim=-1),
-        rng,
+    return trace_tables_reference(
+        *scene_tables(scene), primitive_counts(scene), rays, rng, num_bounces,
+        spp, russian_roulette, rr_start,
+        _resolve_has_dielectric(scene, has_dielectric),
     )
 
 
@@ -386,16 +428,21 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libmegakernel-{digest.hexdigest()[:16]}.so")
+def library_file(source: str, stem: str) -> str:
+    """The path of `source`'s built library: `stem` and a hash of the
+    source, the shared headers and the flags."""
+    digest = hashlib.sha256()
+    for path in (source, *HEADERS):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile csrc/megakernel.cu for sm_90a unless this source's library
-    exists; returns its path.  Raises on a failed build."""
-    path = library_path()
+def build_library(source: str, stem: str) -> str:
+    """Compile `source` for sm_90a unless its library exists; returns its
+    path.  Raises on a failed build."""
+    path = library_file(source, stem)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -403,7 +450,7 @@ def build() -> str:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -413,6 +460,15 @@ def build() -> str:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return path
+
+
+def library_path() -> str:
+    return library_file(SOURCE, "megakernel")
+
+
+def build() -> str:
+    """Compile csrc/megakernel.cu unless this source's library exists."""
+    return build_library(SOURCE, "megakernel")
 
 
 def _library():

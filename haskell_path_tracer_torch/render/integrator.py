@@ -19,7 +19,10 @@ tensors.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import linalg
 from ..models.camera import primary_rays
@@ -39,13 +42,19 @@ def trace_inline(
     num_bounces: int = DEFAULT_BOUNCES,
     russian_roulette: bool = False,
     rr_start: int = 3,
+    differentiable: bool = False,
 ):
     """Trace one sample per ray to completion.  Returns (radiance [..., 3],
-    final rng_state)."""
-    ray_o, ray_d, rng = rays.origin, rays.direction, rng_state
-    result = torch.zeros_like(ray_o)
-    throughput = torch.ones_like(ray_o)
-    for i in range(num_bounces):
+    final rng_state).
+
+    With `differentiable=True` each bounce runs under
+    `torch.utils.checkpoint` (non-reentrant), the counterpart of the JAX
+    package's `jax.checkpoint` scan: the backward pass recomputes a
+    bounce's hit data instead of keeping it.  The forward numbers are the
+    same either way; decisions (hit masks, the winner, the BRDF branch, the
+    rng) carry no gradient."""
+
+    def body(i, ray_o, ray_d, rng, result, throughput):
         hit = nearest_hit(ray_o, ray_d, scene)
         dead = linalg.near_zero(throughput) | ~hit.hit
 
@@ -67,11 +76,27 @@ def trace_inline(
                 )
 
         d3 = dead[..., None]
-        ray_o = torch.where(d3, ray_o, next_o)
-        ray_d = torch.where(d3, ray_d, next_d)
-        rng = torch.where(d3, rng, rng2)
-        result = torch.where(d3, result, new_result)
-        throughput = torch.where(d3, 0.0, new_throughput)
+        return (
+            torch.where(d3, ray_o, next_o),
+            torch.where(d3, ray_d, next_d),
+            torch.where(d3, rng, rng2),
+            torch.where(d3, result, new_result),
+            torch.where(d3, 0.0, new_throughput),
+        )
+
+    state = (
+        rays.origin,
+        rays.direction,
+        rng_state,
+        torch.zeros_like(rays.origin),
+        torch.ones_like(rays.origin),
+    )
+    for i in range(num_bounces):
+        if differentiable:
+            state = checkpoint(partial(body, i), *state, use_reentrant=False)
+        else:
+            state = body(i, *state)
+    _, _, rng, result, _ = state
     return result, rng
 
 

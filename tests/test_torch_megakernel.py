@@ -22,9 +22,11 @@ from torch_port_fixtures import (
     CASES,
     GOLDEN_CASES,
     GOLDEN_PATH,
+    GRAD_CASES,
     H,
     W,
     golden_arrays,
+    jax_grad_trace,
     jax_trace,
     lane_agreement,
     torch_rays,
@@ -82,8 +84,9 @@ def test_dielectric_elision_is_bit_identical(traces, case):
 
 
 def test_golden_file_is_current(traces):
-    """Regenerated from the JAX package, the golden file is unchanged."""
-    want = golden_arrays(traces)
+    """Regenerated from the JAX package, the golden file is unchanged: the
+    forward cases and the gradient cases."""
+    want = golden_arrays(traces, {case: jax_grad_trace(case) for case in GRAD_CASES})
     with np.load(GOLDEN_PATH) as z:
         assert sorted(z.files) == sorted(want)
         for k, v in want.items():

@@ -1,14 +1,20 @@
 """Shared inputs for the PyTorch port's tests: the scenes both packages
 render, built with the JAX package and carried across as numpy arrays.
 
-Also writes the golden file that `chip_smoke.py` holds the CUDA kernel
+Also writes the golden file that `chip_smoke.py` holds the CUDA kernels
 against on a machine without JAX:
 
     JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py
 
 regenerates ``tests/data/torch_port_golden.npz``: for each golden case,
 the JAX package's inputs (scene arrays, primary rays, initial rng) and
-outputs (`trace_inline_pallas` in interpret mode) at 128x16.
+outputs (`trace_inline_pallas` in interpret mode) at 128x16; and for each
+gradient case, the inputs, a radiance cotangent `wts` and the four
+cotangents (tables, ray origin, ray direction) of `jax.grad` through the
+differentiable kernel of `trace_inline_pallas_diff` in interpret mode, at
+32x16.  The gradient cases run 2 bounces: the JAX package's interpret-mode
+backward compiles in time that doubles with each bounce (about 30 s at 2,
+110 s at 4 for the reference scene).
 """
 
 from __future__ import annotations
@@ -44,6 +50,15 @@ CASES = {
     "roulette": ("glass", 2, 6, True, 7),
 }
 GOLDEN_CASES = ("main", "mixed", "glass")
+
+GRAD_W, GRAD_H = 32, 16
+# name -> (scene, spp, bounces, seed of the rng and of the cotangent wts)
+GRAD_CASES = {
+    "main": ("main", 2, 2, 21),
+    "mixed": ("mixed", 2, 2, 22),
+    "glass": ("glass", 2, 2, 23),
+}
+GRAD_OUTPUTS = ("d_geom", "d_mat", "d_origin", "d_direction")
 
 
 def jax_mixed_scene():
@@ -160,6 +175,57 @@ def jax_trace(case):
     return inp
 
 
+def grad_case_inputs(case):
+    """numpy inputs of a gradient case: scene arrays, rays, rng and `wts`,
+    the cotangent of the radiance sum."""
+    scene_name, spp, bounces, seed = GRAD_CASES[case]
+    jscene, jcam = jax_scene(scene_name)
+    rays = jax_primary_rays(jcam, GRAD_W, GRAD_H)
+    return {
+        "scene": C.scene_to_numpy(jscene),
+        "origin": np.asarray(rays.origin, np.float32),
+        "direction": np.asarray(rays.direction, np.float32),
+        "rng_in": np.asarray(J.make_accumulator(GRAD_W, GRAD_H, seed=seed).rng),
+        "wts": np.random.default_rng(seed).normal(size=(GRAD_H, GRAD_W, 3)).astype(np.float32),
+        "spp": spp,
+        "bounces": bounces,
+    }
+
+
+def has_dielectric(scene_arrays) -> bool:
+    return any(
+        (np.asarray(v) == BRDF_DIELECTRIC).any()
+        for k, v in scene_arrays.items() if k.endswith("material.brdf_kind")
+    )
+
+
+def jax_grad_trace(case):
+    """Inputs of a gradient case plus the table-level cotangents of
+    sum(radiance * wts) from `jax.grad` through the custom VJP that
+    `trace_inline_pallas_diff` builds (interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+    from haskell_path_tracer_tpu.ops.pallas_megakernel import _scene_tables
+    from haskell_path_tracer_tpu.ops.pallas_megakernel_vjp import _make_diff_fn
+
+    inp = grad_case_inputs(case)
+    jscene = jax_scene(GRAD_CASES[case][0])[0]
+    geom, mat = _scene_tables(jscene)
+    f = _make_diff_fn(
+        inp["spp"], inp["bounces"], jscene.spheres.count, 8, 16,
+        has_dielectric(inp["scene"]), True,
+        num_boxes=jscene.boxes.count, num_triangles=jscene.triangles.count,
+    )
+
+    def loss(g, m, o, d):
+        return jnp.sum(f(g, m, o, d, inp["rng_in"])[0] * inp["wts"])
+
+    grads = jax.grad(loss, argnums=(0, 1, 2, 3))(geom, mat, inp["origin"], inp["direction"])
+    for k, g in zip(GRAD_OUTPUTS, grads):
+        inp[k] = np.asarray(g, np.float32)
+    return inp
+
+
 def torch_rays(inp, device="cpu"):
     return Rays(
         origin=torch.tensor(inp["origin"], device=device),
@@ -167,9 +233,17 @@ def torch_rays(inp, device="cpu"):
     )
 
 
-def golden_arrays(traces):
-    """Flatten {case: jax_trace(case)} into the golden file's arrays."""
+def golden_arrays(traces, grad_traces):
+    """Flatten {case: jax_trace(case)} and {case: jax_grad_trace(case)}
+    into the golden file's arrays."""
     out = {}
+    for case in GRAD_CASES:
+        t = grad_traces[case]
+        for k, v in t["scene"].items():
+            out[f"grad_{case}__scene__{k}"] = v
+        for k in ("origin", "direction", "rng_in", "wts", *GRAD_OUTPUTS):
+            out[f"grad_{case}__{k}"] = t[k]
+        out[f"grad_{case}__config"] = np.array([t["spp"], t["bounces"]], np.int32)
     for case in GOLDEN_CASES:
         t = traces[case]
         for k, v in t["scene"].items():
@@ -196,7 +270,10 @@ def lane_agreement(rng_a, rng_b, color_a, color_b):
 
 
 if __name__ == "__main__":
-    arrays = golden_arrays({c: jax_trace(c) for c in GOLDEN_CASES})
+    arrays = golden_arrays(
+        {c: jax_trace(c) for c in GOLDEN_CASES},
+        {c: jax_grad_trace(c) for c in GRAD_CASES},
+    )
     os.makedirs(os.path.dirname(GOLDEN_PATH), exist_ok=True)
     np.savez_compressed(GOLDEN_PATH, **arrays)
     print(f"wrote {GOLDEN_PATH} ({os.path.getsize(GOLDEN_PATH)} bytes)")
