@@ -2,13 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from ``haskell_path_tracer_torch/csrc``
-(one nvcc each, started together) and runs ten phases, each printing one
-line; any failure raises and the script exits non-zero without printing a
-result:
+Builds the port's three CUDA libraries from ``haskell_path_tracer_torch/csrc``
+(one nvcc each, started together) and runs fifteen phases, each printing
+one line; any failure raises and the script exits non-zero without
+printing a result:
 
   1. device: name, power limit (nvidia-smi), torch and CUDA versions;
-  2. build: nvcc of csrc/megakernel.cu and csrc/megakernel_vjp.cu, timed;
+  2. build: nvcc of csrc/megakernel.cu, csrc/megakernel_vjp.cu and
+     csrc/nee_megakernel.cu (the NEE kernel and the probe), timed;
   3. forward kernel against its plain PyTorch version on the card, at
      800x600 / 15 bounces / 1 spp, 512x512 / 8 bounces / 4 spp and a
      ragged 333x97, on the reference, mixed-kinds and glass scenes and with
@@ -42,7 +43,29 @@ result:
      the loss falls;
  10. training times: fwd+bwd segments/s at 512x512 / 64 spp / 8 bounces
      (counted as bench.py counts them), the backward kernel alone, ms per
-     SGD step at both shapes, and the plain backward at 128x96.
+     SGD step at both shapes, and the plain backward at 128x96;
+ 11. NEE kernel against its plain version (`trace_physical_nee_reference`)
+     on the card: the reference scene at 800x600 / 15 bounces / 2 spp,
+     Cornell at 512x512 / 16 spp / 4 bounces (suite config 6), glass,
+     triangle emitters (config 8's scene), boxes and triangles, no emitter,
+     1000 spheres at 480x272 / 4 spp / 4 bounces (config 4's scene) and
+     20000 spheres, whose tables do not fit shared memory; the live-bounce
+     telemetry must equal the plain version's;
+ 12. NEE kernel against the JAX package's outputs
+     (tests/data/torch_port_nee_golden.npz);
+ 13. probe against the plain fold (eps = 0) on the config-4 scene, and
+     presort against raster order, bit for bit;
+ 14. the physical serving path end to end: the CLI with `--variant
+     physical` renders the reference scene at 800x600, 15 bounces, 64 spp
+     (one NEE launch per step, lane parity with the same CLI run with
+     `--kernel torch`), then the config-4 scene from a scene file at
+     800x600 / 15 bounces / 131 spp, whose 30-sample batch takes the
+     presort route (one probe launch);
+ 15. NEE times: the kernel at configs 6 and 8 (512x512 / 16 spp / 4
+     bounces) and 4 (1920x1088 / 256 spp / 4 bounces, presort on and off)
+     with the live share from the telemetry, the probe alone, the kernel
+     and its plain version at the serving shape (800x600 / 15 / 1 spp),
+     and `Renderer.step` at 1 spp.
 
 Lane tolerance of the forward (tests/test_pallas.py): >= 99.5% of lanes
 with equal rng words, >= 99% of color values isclose at rtol = atol =
@@ -52,11 +75,17 @@ max|a - b| / (max|b| + 1e-6) below 1e-2 for the ray cotangents and for
 every column of the table cotangents' sphere and plane rows, 2e-2 for the
 columns of the box and triangle rows.
 
+NEE tolerance (tests/test_pallas_nee.py:assert_lane_parity): at most 0.5%
+of lanes with a differing rng, and radiance within 1e-4 + 1e-3 |ref| on
+all but 0.5% of the others.  Probe: the winner equal on >= 99.95% of lanes
+and t within 1e-6 relative where it is.
+
 The line before the last is a JSON object of the kernels with their
-launches on the two main paths (phases 5 and 9), their times, their plain
-versions' and their bounds at each path's shape (the forward at 800x600 /
-15 bounces / 1 spp, the backward at 512x512 / 64 spp / 8 bounces); the
-last line is {"ok": true, "device": {...}}.
+launches on the three main paths (phases 5, 9 and 14), their times, their
+plain versions' and their bounds at each path's shape (the forward and
+the NEE kernel at 800x600 / 15 bounces / 1 spp, the backward at 512x512 /
+64 spp / 8 bounces, the probe at 800x600 on the config-4 scene); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -84,11 +113,17 @@ from haskell_path_tracer_torch.models.camera import primary_rays  # noqa: E402
 from haskell_path_tracer_torch.models.objects import Camera, Rays  # noqa: E402
 from haskell_path_tracer_torch.ops import megakernel as MK  # noqa: E402
 from haskell_path_tracer_torch.ops import megakernel_vjp as V  # noqa: E402
+from haskell_path_tracer_torch.ops import nee as NE  # noqa: E402
+from haskell_path_tracer_torch.ops.intersect import INFINITE, nearest_t_prim  # noqa: E402
+from haskell_path_tracer_torch.models import scenes as SC  # noqa: E402
+from haskell_path_tracer_torch.models.io import save_scene  # noqa: E402
+from haskell_path_tracer_torch.render.nee import _present_kinds  # noqa: E402
 from haskell_path_tracer_torch.ops.rng import gen_seeds, gen_vec  # noqa: E402
 from haskell_path_tracer_torch.render.renderer import Renderer  # noqa: E402
 from haskell_path_tracer_torch.utils.checkpoint import load_accumulator  # noqa: E402
 from haskell_path_tracer_torch.utils.config import RenderConfig  # noqa: E402
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
+NEE_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_nee_golden.npz")
 RNG_MIN, CLOSE_MIN = 0.995, 0.99
 # The reference scene's image mean at 15 bounces (the verify recipe's
 # "about 15-20"; negative lanes from the unclamped matte BRDF included).
@@ -501,6 +536,279 @@ def training_times(scenes, dev) -> dict:
     return out
 
 
+# The NEE kernel's operations, counted from csrc/nee.cuh as above.  The
+# fold, per primitive: the nearest test of a sphere (19; the primary fold,
+# once per pixel), and at a live bounce the dual test that shares its
+# `center - point` vector with the shadow ray (19 + 12); a plane 14 (+ 6
+# for the shadow ray, whose numerator is the BSDF ray's), a box 25 (+ 19),
+# a triangle 46 (+ 30).
+PRIMARY_FOLD_OPS = (19, 14, 25, 46)
+DUAL_FOLD_OPS = (31, 20, 44, 76)
+# A live bounce, whatever it hit: the 6 uniforms (12), the dead test (5),
+# the hit point (6), the next throughput (3) and the cheapest sample, the
+# mirror reflection (12); with emitters, the light choice (3) and the
+# cheapest light sample, the cone with its distance (74).  Normals,
+# emission, the other BRDFs and the NEE sum are not counted.
+NEE_BOUNCE_OPS, NEE_LIGHT_OPS = 38, 77
+# Bytes per pixel: rays 24 and rng 16 in, radiance 12 and rng 16 out (the
+# NEE kernel); rays 24 in, t and prim 8 out (the probe).  The tables add
+# 4 B per entry.
+NEE_BYTES_PER_PIXEL, PROBE_BYTES_PER_RAY = 68, 32
+LANE_MAX_DIVERGED = 0.005
+PROBE_PRIM_MIN, PROBE_T_RTOL = 0.9995, 1e-6
+CAM4 = ([0.0, 2.0, 0.0], [0.2, 0.0, 0.0])  # suite config 4's camera
+
+
+def lane_parity(label, got, want) -> dict:
+    """tests/test_pallas_nee.py:assert_lane_parity on (radiance, rng)."""
+    rad, rng = got[0], got[1]
+    rad_ref, rng_ref = want[0], want[1]
+    if not torch.isfinite(rad).all():
+        raise AssertionError(f"{label}: kernel radiance is not finite")
+    match = (rng == rng_ref).all(dim=-1)
+    diverged = 1.0 - match.double().mean().item()
+    bad = ((rad - rad_ref).abs() > 1e-4 + 1e-3 * rad_ref.abs()).any(dim=-1)
+    off = (bad & match).double().mean().item()
+    if diverged > LANE_MAX_DIVERGED or off > LANE_MAX_DIVERGED:
+        raise AssertionError(f"{label}: rng diverged on {diverged:.4%}, radiance off on {off:.4%}")
+    return dict(case=label, rng_diverged=diverged, radiance_off=off,
+                max_abs_err=(rad - rad_ref).abs().max().item())
+
+
+def nee_ops(tables, live, pixels) -> int:
+    """fp32 operations the NEE kernel's function needs: the primary fold
+    per pixel, the dual fold and a live bounce's least work per live bounce."""
+    counts = tables.counts
+    per_bounce = sum(n * f for n, f in zip(counts, DUAL_FOLD_OPS)) + NEE_BOUNCE_OPS
+    per_bounce += NEE_LIGHT_OPS if tables.num_lights else 0
+    return pixels * sum(n * f for n, f in zip(counts, PRIMARY_FOLD_OPS)) + live * per_bounce
+
+
+def nee_table_bytes(tables) -> int:
+    return 4 * (tables.fold.numel() + tables.payload.numel() + tables.lights.numel())
+
+
+def nee_bound(tables, live, pixels) -> dict:
+    ops = nee_ops(tables, live, pixels)
+    return {**bound(NEE_BYTES_PER_PIXEL * pixels + nee_table_bytes(tables), ops), "ops": ops}
+
+
+def probe_bound(tables, rays) -> dict:
+    n = rays.origin.numel() // 3
+    ops = n * sum(c * f for c, f in zip(tables.counts, PRIMARY_FOLD_OPS))
+    return {**bound(PROBE_BYTES_PER_RAY * n + 4 * tables.fold.numel(), ops), "ops": ops}
+
+
+def nee_cases(dev) -> dict:
+    origin = Camera.create([0.0] * 3, [0.0] * 3, 90.0, dev)
+    ref = world.initial_camera(dev)
+    cam4 = Camera.create(*CAM4, 90.0, dev)
+    return {
+        "reference": (world.main_scene(dev), ref, 800, 600, 15, 2),
+        "cornell8": (SC.cornell_scene(dev), ref, 512, 512, 4, 16),
+        "glassy": (SC.glassy_scene(dev), origin, 512, 256, 6, 4),
+        "tri_emitters": (SC.tri_emitter_scene(dev), ref, 512, 512, 4, 4),
+        "box_tri": (SC.box_tri_scene(dev), origin, 512, 256, 4, 4),
+        "zero_light": (SC.zero_light_scene(dev), ref, 512, 256, 4, 4),
+        "big1000": (SC.big_scene(dev, 1000), cam4, 480, 272, 4, 4),
+        "big20000": (SC.big_scene(dev, 20000), cam4, 320, 180, 3, 2),
+    }
+
+
+def nee_vs_plain(dev) -> list:
+    """Phase 11: the NEE kernel against its plain version, lane parity and
+    equal telemetry, on every case; the 20000-sphere tables (320 KB) are
+    read from device memory, the others from shared memory."""
+    results = []
+    for label, (scene, cam, w, h, bounces, spp) in nee_cases(dev).items():
+        rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), len(results) + 100, dev)
+        got = NE.trace_physical_nee(scene, rays, rng, bounces, spp, presort=False, telemetry=True)
+        want = NE.trace_physical_nee_reference(scene, rays, rng, bounces, spp, telemetry=True)
+        torch.cuda.synchronize()
+        case = lane_parity(f"{label} {w}x{h} b{bounces} spp{spp}", got, want)
+        if not torch.equal(got[2], want[2]):
+            raise AssertionError(f"{label}: live bounces differ from the plain version's")
+        tables = NE.nee_scene_tables(scene)
+        results.append({**case, "live_bounces": int(got[2].sum()), "primitives": list(tables.counts),
+                        "lights": tables.num_lights,
+                        "tables_in_shared_memory": 4 * tables.fold.numel() <= 48 * 1024,
+                        "mean": want[0].mean().item()})
+    return results
+
+
+def nee_vs_golden(dev) -> list:
+    """Phase 12: the NEE kernel on the golden cases' inputs against the JAX
+    package's outputs."""
+    results = []
+    with np.load(NEE_GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    for case in sorted({k.split("__")[0] for k in golden}):
+        prefix = f"{case}__scene__"
+        scene = C.scene_from_numpy(
+            {k[len(prefix):]: v for k, v in golden.items() if k.startswith(prefix)}, dev)
+        spp, bounces = golden[f"{case}__config"].tolist()
+        light_idx = tuple(golden[f"{case}__light_idx"].tolist())
+        if NE.scene_light_indices(scene) != light_idx:
+            raise AssertionError(f"golden {case}: emitters {light_idx} differ")
+        rays = Rays(origin=torch.as_tensor(golden[f"{case}__origin"], device=dev),
+                    direction=torch.as_tensor(golden[f"{case}__direction"], device=dev))
+        got = NE.trace_physical_nee(scene, rays, C.rng_from_numpy(golden[f"{case}__rng_in"], dev),
+                                    bounces, spp, light_idx=light_idx)
+        want = (torch.as_tensor(golden[f"{case}__radiance"], device=dev),
+                C.rng_from_numpy(golden[f"{case}__rng_out"], dev))
+        torch.cuda.synchronize()
+        results.append(lane_parity(f"golden {case} 128x16 b{bounces} spp{spp}", got, want))
+    return results
+
+
+def probe_check(dev) -> dict:
+    """Phase 13: the probe against the plain fold on the config-4 scene at
+    1920x1088 (the plain fold over row tiles), and the NEE kernel with the
+    presort (probe, argsort, lane order) against raster order, bit for bit,
+    at 1920x1088 / 2 spp / 4 bounces."""
+    scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+    rays, rng = primary_rays(cam, 1920, 1088), gen_seeds((1088, 1920), 7, dev)
+    tables = NE.nee_scene_tables(scene)
+    t0, prim0 = NE.launch_probe(tables, rays)
+    tiles = [nearest_t_prim(rays.origin[r:r + 136], rays.direction[r:r + 136], scene, 0.0)
+             for r in range(0, 1088, 136)]
+    t_ref, prim_ref = torch.cat([t for t, _ in tiles]), torch.cat([p for _, p in tiles]).to(torch.int32)
+    same = prim0 == prim_ref
+    share = same.double().mean().item()
+    hit = same & (t_ref < INFINITE)
+    rel = ((t0 - t_ref).abs() / t_ref.abs())[hit].max().item()
+    if share < PROBE_PRIM_MIN or rel > PROBE_T_RTOL or not torch.equal(t0[~hit & same], t_ref[~hit & same]):
+        raise AssertionError(f"probe: winners equal on {share:.6f}, t rel {rel}")
+    raster = NE.trace_physical_nee(scene, rays, rng, 4, 2, presort=False, telemetry=True)
+    presorted = NE.trace_physical_nee(scene, rays, rng, 4, 2, presort=True, telemetry=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(raster, presorted)):
+        raise AssertionError("presort changed a pixel's radiance, rng or telemetry")
+    return {"prim_equal": share, "t_rel_err_max": rel,
+            "max_abs_err": (t0 - t_ref)[hit].abs().max().item(),
+            "sky_share": (t_ref >= INFINITE).double().mean().item(), "presort_bit_identical": True}
+
+
+def physical_main_path(dev) -> dict:
+    """Phase 14: the physical serving path through the CLI, counted from 0:
+    the reference scene at 800x600 / 15 bounces / 64 spp (the kernel, and
+    the same run on the plain path for lane parity of the accumulators),
+    then the config-4 scene from a scene file at 800x600 / 15 / 131 spp."""
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        big_json = os.path.join(tmp, "big1000.json")
+        save_scene(big_json, SC.big_scene("cpu", 1000), Camera.create(*CAM4, 90.0, "cpu"))
+
+        def cli(name, args):
+            png, ckpt = os.path.join(tmp, f"{name}.png"), os.path.join(tmp, f"{name}.npz")
+            t0 = time.perf_counter()
+            rc = cli_main(["--variant", "physical", "--width", "800", "--height", "600", "--seed", "0",
+                           "--quiet", "--checkpoint", ckpt, "-o", png, *args])
+            wall = time.perf_counter() - t0
+            acc, _ = load_accumulator(ckpt, dev)
+            img = acc.image.cpu().numpy()
+            rec = {"rc": rc, "iterations": acc.iterations, "wall_s": wall, "mean": float(img.mean()),
+                   "lit_share": float((img.sum(-1) > 1e-3).mean()), "png_bytes": os.path.getsize(png)}
+            if rc != 0 or not np.isfinite(img).all() or rec["lit_share"] == 0.0:
+                raise AssertionError(f"{name}: CLI returned {rc}, or the image is not finite or black")
+            return rec, acc
+
+        MK.LAUNCHES = V.LAUNCHES = 0
+        NE.LAUNCHES.update(nee_megakernel=0, primary_probe=0)
+        ref, acc = cli("reference", ["--device", "cuda", "--spp", "64"])
+        ref_launches = dict(NE.LAUNCHES)
+        big, _ = cli("big1000", ["--device", "cuda", "--spp", "131", "--scene", big_json])
+        launches = {"megakernel": MK.LAUNCHES, "megakernel_vjp": V.LAUNCHES, **NE.LAUNCHES}
+        plain, acc_plain = cli("reference_plain", ["--device", "cuda", "--kernel", "torch", "--spp", "64"])
+    if ref_launches != {"nee_megakernel": 64, "primary_probe": 0}:
+        raise AssertionError(f"reference scene: launches {ref_launches}, not one NEE launch per step")
+    if launches["nee_megakernel"] != 64 + 102 or launches["primary_probe"] != 1 or launches["megakernel"]:
+        raise AssertionError(f"physical main path launches {launches}")
+    if (ref["iterations"], big["iterations"]) != (64, 131):
+        raise AssertionError("the CLI did not render every sample")
+    out["reference_800x600_b15_spp64"] = {**ref, "vs_plain_cli": lane_parity(
+        "CLI kernel vs plain", (acc.color, acc.rng), (acc_plain.color, acc_plain.rng))}
+    out["reference_800x600_b15_spp64_plain"] = plain
+    out["big1000_800x600_b15_spp131"] = big
+    out["launches"] = launches
+    return out
+
+
+def nee_times(dev, smi) -> tuple:
+    """Phase 15.  Returns the phase's record and the kernels-line entries
+    of the NEE kernel and the probe."""
+    out = {"nvidia_smi": smi}
+    for label, scene in (("config6_cornell8", SC.cornell_scene(dev)),
+                         ("config8_tri_emitters", SC.tri_emitter_scene(dev))):
+        cam, (w, h, spp, b) = world.initial_camera(dev), (512, 512, 16, 4)
+        rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 0, dev)
+        tables, kinds = NE.nee_scene_tables(scene), _present_kinds(scene)
+        live = int(NE.launch_nee(tables, rays, rng, b, spp, 1 in kinds, 2 in kinds, telemetry=True)[2].sum())
+        kernel = cuda_times(lambda: NE.launch_nee(tables, rays, rng, b, spp, 1 in kinds, 2 in kinds), 20)
+        out[f"{label}_512x512_spp16_b4"] = {
+            "kernel": kernel, "live_share": live / (w * h * spp * b),
+            "rays_per_s_suite_count": w * h * spp * b * 2 / (kernel["median_ms"] / 1e3),
+            **nee_bound(tables, live, w * h)}
+
+    # Config 4: 1920x1088 / 256 spp / 4 bounces on 1000 spheres.
+    scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+    w, h, spp, b = 1920, 1088, 256, 4
+    rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 0, dev)
+    tables = NE.nee_scene_tables(scene)
+    live = int(NE.launch_nee(tables, rays, rng, b, spp, False, False, telemetry=True)[2].sum())
+
+    def presorted():
+        t0, prim0 = NE.launch_probe(tables, rays)
+        return NE.launch_nee(tables, rays, rng, b, spp, False, False, order=NE._presort_order(t0),
+                             primary=(t0, prim0))
+
+    raster = cuda_times(lambda: NE.launch_nee(tables, rays, rng, b, spp, False, False), 2)
+    sort = cuda_times(presorted, 2)
+    raster2 = cuda_times(lambda: NE.launch_nee(tables, rays, rng, b, spp, False, False), 2)
+    probe = cuda_times(lambda: NE.launch_probe(tables, rays), 20)
+    out["config4_big1000_1920x1088_spp256_b4"] = {
+        "raster": raster, "presort": sort, "raster_again": raster2,
+        "live_share": live / (w * h * spp * b),
+        "rays_per_s_suite_count": w * h * spp * b * 2 / (min(raster["median_ms"], sort["median_ms"]) / 1e3),
+        "presort_gate": {"spheres_min": NE.PRESORT_MIN_SPHERES, "spp_min": NE.PRESORT_MIN_SPP},
+        **nee_bound(tables, live, w * h)}
+    out["probe_config4_1920x1088"] = {"kernel": probe, **probe_bound(tables, rays)}
+
+    # The serving shape, 800x600 / 15 bounces / 1 spp on the reference
+    # scene: the kernel, its plain version and the Renderer step.
+    scene, cam = world.main_scene(dev), world.initial_camera(dev)
+    w, h, b = 800, 600, 15
+    rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 0, dev)
+    tables, kinds = NE.nee_scene_tables(scene), _present_kinds(scene)
+    live = int(NE.launch_nee(tables, rays, rng, b, 1, 1 in kinds, 2 in kinds, telemetry=True)[2].sum())
+    kernel = cuda_times(lambda: NE.launch_nee(tables, rays, rng, b, 1, 1 in kinds, 2 in kinds), 50)
+    plain = cuda_times(lambda: NE.trace_physical_nee_reference(scene, rays, rng, b, 1, kinds), 5)
+    nee_b = nee_bound(tables, live, w * h)
+    steps = {}
+    for choice, reps in (("auto", 50), ("torch", 5)):
+        renderer = Renderer(RenderConfig(algorithm="physical", kernel=choice, device="cuda"))
+        acc = renderer.init_accumulator(seed=0)
+        steps[choice] = cuda_times(lambda: renderer.step(scene, cam, acc, spp=1), reps)
+    out["serving_800x600_b15_spp1"] = {"kernel": kernel, "plain": plain, "live_share": live / (w * h * b),
+                                       "renderer_step_auto": steps["auto"],
+                                       "renderer_step_torch": steps["torch"], **nee_b}
+
+    # The probe at its main-path shape: 800x600 on the config-4 scene.
+    scene4, cam4 = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+    rays4 = primary_rays(cam4, 800, 600)
+    tables4 = NE.nee_scene_tables(scene4)
+    probe_main = cuda_times(lambda: NE.launch_probe(tables4, rays4), 50)
+    probe_plain = cuda_times(lambda: nearest_t_prim(rays4.origin, rays4.direction, scene4, 0.0), 3)
+    out["probe_800x600_big1000"] = {"kernel": probe_main, "plain": probe_plain, **probe_bound(tables4, rays4)}
+    entries = {
+        "nee_megakernel": {"ms": kernel["median_ms"], "plain_ms": plain["median_ms"],
+                           "bound_ms": nee_b["bound_ms"], "bound_by": nee_b["bound_by"]},
+        "primary_probe": {"ms": probe_main["median_ms"], "plain_ms": probe_plain["median_ms"],
+                          **{k: out["probe_800x600_big1000"][k] for k in ("bound_ms", "bound_by")}},
+    }
+    return out, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -517,7 +825,7 @@ def main() -> int:
 
     # 2. Build, from the sources in this checkout: one nvcc per source,
     # started together.
-    builds = {"megakernel": MK, "megakernel_vjp": V}
+    builds = {"megakernel": MK, "megakernel_vjp": V, "nee_megakernel": NE}
     for mod in builds.values():
         if os.path.exists(mod.library_path()):
             os.unlink(mod.library_path())
@@ -679,6 +987,18 @@ def main() -> int:
     times = training_times(scenes, dev)
     phase("training_times", nvidia_smi=smi, **times)
 
+    # 11-15: the physical/NEE path.
+    nee_cases_ = nee_vs_plain(dev)
+    nee_err = max(c["max_abs_err"] for c in nee_cases_)
+    phase("nee_kernel_vs_plain", max_abs_err=nee_err, cases=nee_cases_)
+    phase("nee_vs_jax_golden", cases=nee_vs_golden(dev))
+    probe = probe_check(dev)
+    phase("probe", **probe)
+    physical = physical_main_path(dev)
+    phase("physical_main_path", **physical)
+    nee_record, nee_entries = nee_times(dev, smi)
+    phase("nee_times", **nee_record)
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -702,6 +1022,24 @@ def main() -> int:
         "plain_ms": main_shape["case"]["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "nee_megakernel",
+        "route": "cuda",
+        "source": "haskell_path_tracer_torch/csrc/nee_megakernel.cu",
+        "replaces": "haskell_path_tracer_tpu/ops/pallas_nee.py:431",
+        "launches": physical["launches"]["nee_megakernel"],
+        "max_abs_err": nee_err,
+        **nee_entries["nee_megakernel"],
+        "library_ms": None,
+    }, {
+        "name": "primary_probe",
+        "route": "cuda",
+        "source": "haskell_path_tracer_torch/csrc/nee_megakernel.cu",
+        "replaces": "haskell_path_tracer_tpu/ops/pallas_nee.py:395",
+        "launches": physical["launches"]["primary_probe"],
+        "max_abs_err": probe["max_abs_err"],
+        **nee_entries["primary_probe"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,11 @@ On a CUDA device the whole sample x bounce loop is one launch of the
 megakernel in ``csrc/megakernel.cu``; on the CPU the same functions run
 as plain tensor ops.  Inverse rendering (`loss_and_grad` of `image_loss`
 over `SceneParams`) differentiates the same trace, on a CUDA device through
-the backward megakernel in ``csrc/megakernel_vjp.cu``.  This package
-imports neither JAX nor the JAX package.
+the backward megakernel in ``csrc/megakernel_vjp.cu``.  The physical/NEE
+estimator (`render_batch_physical`, `Renderer(algorithm="physical")`) runs
+on a CUDA device as one launch of the NEE megakernel in
+``csrc/nee_megakernel.cu``.  This package imports neither JAX nor the JAX
+package.
 """
 
 from .models.objects import (
@@ -43,6 +46,8 @@ from .render.integrator import (
     render_sample_inline,
     trace_inline,
 )
+from .render.nee import render_batch_physical, render_sample_physical, trace_physical
+from .ops.nee import primary_probe, scene_light_indices
 from .render.renderer import Renderer
 from .diff.grad import (
     SceneParams,

@@ -2,11 +2,15 @@
 
 Counterpart of ``haskell_path_tracer_tpu/app/main.py``: the reference's
 progressive batching schedule and periodic reseeding, an image file in
-place of the window, and checkpoint/resume.
+place of the window, and checkpoint/resume.  `--variant inline` (the
+default) renders the reference's parity estimator, `--variant physical`
+the corrected BRDFs with next-event estimation (`--no-nee` for BSDF
+sampling alone); both log the same per-phase lines.
 
 Usage:
   python -m haskell_path_tracer_torch.app.main --device cuda \
       --width 800 --height 600 --spp 64 -o out.png
+  python -m haskell_path_tracer_torch.app.main --variant physical -o out.png
   python -m haskell_path_tracer_torch.app.main --scene scene.json \
       --checkpoint state.npz --checkpoint-every 500 --resume -o out.png
 """
@@ -24,7 +28,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(
         prog="haskell_path_tracer_torch",
-        description="Progressive path tracer on PyTorch (CUDA megakernel on a GPU)",
+        description="Progressive path tracer on PyTorch (CUDA megakernels on a GPU)",
     )
     add_cli_args(p)
     p.add_argument("-o", "--output", default="render.png")

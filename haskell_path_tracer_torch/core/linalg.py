@@ -30,6 +30,16 @@ def quadrance(v: torch.Tensor) -> torch.Tensor:
     return dot(v, v)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root on every device, as JAX, numpy and
+    the CUDA kernels compute it.  PyTorch's float32 sqrt on the CPU (MKL's
+    vector math) can be 1 ulp off, so there it goes through float64, whose
+    rounding to float32 is exact for a square root."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(quadrance(v))
 

@@ -53,8 +53,9 @@ def render_radiance(
     backend always runs it."""
     if estimator == "physical":
         raise NotImplementedError(
-            "estimator='physical' (the corrected-BRDF + NEE estimator) is not "
-            "ported yet: ROADMAP Queue A #8-#9"
+            "estimator='physical': the gradients of the corrected-BRDF + NEE "
+            "estimator are not ported yet: ROADMAP Queue A #8-#9 (#8's forward "
+            "is ported; #9 differentiates it)"
         )
     if estimator != "parity":
         raise ValueError(f"unknown estimator {estimator!r}")

@@ -14,6 +14,12 @@ Misses encode as `t = INFINITE` (f32 max).  Nearest-hit ties go to the
 lowest primitive index, in the order spheres ++ planes ++ boxes ++
 triangles.  The hit payload is read with an index gather of the winner's
 row (the JAX package's one-hot matmul existed for the TPU's matrix unit).
+
+Above `CHUNKED_THRESHOLD` primitives the spheres are folded in chunks of
+`CHUNK_SIZE` (a strict `<` between chunks keeps the first index on ties)
+and the other kinds merged after them in index order: the JAX package's
+XLA fallback, in plain tensor ops.  `sphere_occluded_any` and
+`shadow_occluded` are the physical/NEE family's shadow test.
 """
 
 from __future__ import annotations
@@ -33,9 +39,10 @@ EPSILON = float(np.float32(0.002))
 
 PLANE_DENOM_EPS = float(np.float32(1e-6))
 
-# Above this primitive count the JAX package switches to a chunked fold and
-# a large-scene kernel; that slice is not ported yet.
+# Above this primitive count the sphere fold runs in chunks of CHUNK_SIZE,
+# so no [rays, P] distance plane is materialised.
 CHUNKED_THRESHOLD = 128
+CHUNK_SIZE = 128
 
 
 def sphere_distances(ray_o, ray_d, spheres: Spheres, reject_below=0.0):
@@ -48,7 +55,7 @@ def sphere_distances(ray_o, ray_d, spheres: Spheres, reject_below=0.0):
     r2 = spheres.radius * spheres.radius
     outside = d2 > r2
     thc_arg = torch.where(outside, 1.0, torch.clamp(r2 - d2, min=1e-12))
-    thc = torch.where(outside, 0.0, torch.sqrt(thc_arg))
+    thc = torch.where(outside, 0.0, linalg.sqrt(thc_arg))
     t = tca - thc
     miss = (tca < reject_below) | outside | (t < reject_below)
     return torch.where(miss, INFINITE, t)
@@ -184,14 +191,59 @@ def _nearest_t_prim_small(ray_o, ray_d, scene: Scene, reject_below=0.0):
     return t, torch.clamp(prim, max=num_prims - 1)
 
 
-def nearest_t_prim(ray_o, ray_d, scene: Scene, reject_below=0.0):
-    """Nearest (t, prim) only — the fold half of `nearest_hit`."""
-    if scene.num_primitives > CHUNKED_THRESHOLD:
-        raise NotImplementedError(
-            f"scenes above {CHUNKED_THRESHOLD} primitives need the chunked "
-            "large-scene fold (ROADMAP Queue B #7, "
-            "ops/pallas_intersect.py:_sphere_fold_kernel), not ported yet"
+def _first_min(dists):
+    """(min over the trailing axis, the first index at it)."""
+    k = dists.shape[-1]
+    kt = dists.amin(dim=-1)
+    iota = torch.arange(k, device=dists.device)
+    karg = torch.where(dists == kt[..., None], iota, k).amin(dim=-1)
+    return kt, torch.clamp(karg, max=k - 1)
+
+
+def _merge_non_sphere(ray_o, ray_d, scene: Scene, t, prim, reject_below=0.0):
+    """Merge planes, boxes and triangles into a sphere-only (t, prim), in
+    index order, so the first-primitive tie-break holds across kinds."""
+    offset = scene.spheres.count
+    for part, dist_fn in (
+        (scene.planes, plane_distances),
+        (scene.boxes, box_distances),
+        (scene.triangles, triangle_distances),
+    ):
+        if part.count:
+            kt, karg = _first_min(dist_fn(ray_o, ray_d, part, reject_below))
+            better = kt < t
+            t = torch.where(better, kt, t)
+            prim = torch.where(better, offset + karg, prim)
+        offset += part.count
+    return t, prim
+
+
+def _nearest_t_prim_chunked(ray_o, ray_d, scene: Scene, reject_below=0.0):
+    """Large-scene nearest hit: the spheres in chunks of CHUNK_SIZE (the
+    last chunk is shorter, so nothing is padded), a strict `<` between
+    chunks, then the other kinds merged in index order."""
+    shape = ray_o.shape[:-1]
+    t = torch.full(shape, INFINITE, dtype=torch.float32, device=ray_o.device)
+    prim = torch.zeros(shape, dtype=torch.int64, device=ray_o.device)
+    sp = scene.spheres
+    for lo in range(0, sp.count, CHUNK_SIZE):
+        chunk = Spheres(
+            pos=sp.pos[lo : lo + CHUNK_SIZE],
+            radius=sp.radius[lo : lo + CHUNK_SIZE],
+            material=None,
         )
+        c_t, c_arg = _first_min(sphere_distances(ray_o, ray_d, chunk, reject_below))
+        better = c_t < t
+        t = torch.where(better, c_t, t)
+        prim = torch.where(better, lo + c_arg, prim)
+    return _merge_non_sphere(ray_o, ray_d, scene, t, prim, reject_below)
+
+
+def nearest_t_prim(ray_o, ray_d, scene: Scene, reject_below=0.0):
+    """Nearest (t, prim) only — the fold half of `nearest_hit`.  Misses
+    give (INFINITE, 0)."""
+    if scene.num_primitives > CHUNKED_THRESHOLD:
+        return _nearest_t_prim_chunked(ray_o, ray_d, scene, reject_below)
     return _nearest_t_prim_small(ray_o, ray_d, scene, reject_below)
 
 
@@ -233,3 +285,55 @@ def hit_from_t_prim(ray_o, ray_d, t, prim, scene: Scene) -> Hit:
         brdf_kind=torch.round(fields[..., 11]).to(torch.int32),
         brdf_param=fields[..., 10],
     )
+
+
+def sphere_occluded_any(point, l_dir, t_l, exclude_prim, spheres: Spheres):
+    """Sqrt-free any-hit shadow test: True where some sphere other than
+    `exclude_prim` (global index; spheres come first) meets the ray
+    (point, l_dir) at t in [EPSILON, t_l).  With the distances fixed there
+    is no need for the sqrt, h being r^2 - d^2:
+        t >= eps  <=>  (tca - eps >= 0) & ((tca - eps)^2 >= h)
+        t <  t_l  <=>  (tca - t_l < 0) | ((tca - t_l)^2 < h)
+    The spheres go in chunks of CHUNK_SIZE, which bounds the [rays, chunk]
+    intermediates and changes no decision."""
+    occ = torch.zeros(point.shape[:-1], dtype=torch.bool, device=point.device)
+    for lo in range(0, spheres.count, CHUNK_SIZE):
+        pos = spheres.pos[lo : lo + CHUNK_SIZE]
+        radius = spheres.radius[lo : lo + CHUNK_SIZE]
+        l = pos - point[..., None, :]
+        ll = linalg.quadrance(l)
+        tca = linalg.dot(l, l_dir[..., None, :])
+        r2 = radius * radius
+        h = r2 - (ll - tca * tca)
+        a1 = tca - EPSILON
+        a2 = tca - t_l[..., None]
+        iota = torch.arange(lo, lo + len(radius), device=point.device)
+        hits = (
+            (h >= 0.0)
+            & (a1 >= 0.0)
+            & (a1 * a1 >= h)
+            & ((a2 < 0.0) | (a2 * a2 < h))
+            & (iota != exclude_prim[..., None])
+        )
+        occ = occ | hits.any(dim=-1)
+    return occ
+
+
+def shadow_occluded(point, l_dir, t_l, exclude_prim, scene: Scene):
+    """True where any primitive other than `exclude_prim` blocks the
+    segment [EPSILON, t_l) from `point` along `l_dir`: spheres by the
+    sqrt-free test, planes, boxes and triangles by their distances in the
+    same window."""
+    occ = sphere_occluded_any(point, l_dir, t_l, exclude_prim, scene.spheres)
+    if scene.planes.count:
+        pd = plane_distances(point, l_dir, scene.planes)
+        occ = occ | ((pd >= EPSILON) & (pd < t_l[..., None])).any(dim=-1)
+    if scene.boxes.count:
+        bd = box_distances(point, l_dir, scene.boxes, EPSILON)
+        occ = occ | (bd < t_l[..., None]).any(dim=-1)
+    if scene.triangles.count:
+        td = triangle_distances(point, l_dir, scene.triangles, EPSILON)
+        base = scene.spheres.count + scene.planes.count + scene.boxes.count
+        iota = torch.arange(base, base + scene.triangles.count, device=point.device)
+        occ = occ | ((td < t_l[..., None]) & (iota != exclude_prim[..., None])).any(dim=-1)
+    return occ

@@ -428,21 +428,21 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_file(source: str, stem: str) -> str:
+def library_file(source: str, stem: str, headers=HEADERS) -> str:
     """The path of `source`'s built library: `stem` and a hash of the
-    source, the shared headers and the flags."""
+    source, the headers it includes and the flags."""
     digest = hashlib.sha256()
-    for path in (source, *HEADERS):
+    for path in (source, *headers):
         with open(path, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def build_library(source: str, stem: str) -> str:
+def build_library(source: str, stem: str, headers=HEADERS) -> str:
     """Compile `source` for sm_90a unless its library exists; returns its
     path.  Raises on a failed build."""
-    path = library_file(source, stem)
+    path = library_file(source, stem, headers)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -1,10 +1,11 @@
 """The progressive renderer, with the reference's schedule.
 
 Counterpart of ``haskell_path_tracer_tpu/render/renderer.py`` for the
-inline algorithm: one sample per step for the first 100 iterations, then
-batches of max(30, iterations / 50); every `reseed_interval` samples the
-per-pixel RNGs are reseeded.  PyTorch runs eagerly, so there is no compile
-boundary; a step launches asynchronously on the accumulator's device.
+inline and physical algorithms: one sample per step for the first 100
+iterations, then batches of max(30, iterations / 50); every
+`reseed_interval` samples the per-pixel RNGs are reseeded.  PyTorch runs
+eagerly, so there is no compile boundary; a step launches asynchronously on
+the accumulator's device.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from ..models.objects import Accumulator, Camera, Scene
 from ..ops import rng as rng_ops
 from ..utils.config import RenderConfig
-from . import integrator
+from . import integrator, nee
 
 
 def resolve_device(name: str) -> torch.device:
@@ -31,27 +32,49 @@ def resolve_device(name: str) -> torch.device:
 
 class Renderer:
     """Progressive path tracer bound to a (resolution, algorithm, bounces,
-    device) configuration."""
+    device) configuration.
+
+    `algorithm="physical"` renders the physical/NEE estimator
+    (`render/nee.py:render_batch_physical`; `nee` and `kernel` as there).
+    Its BRDF kinds and emitters are read from a scene once, when `step`
+    first sees that scene object: a scene changed in place needs a new
+    Scene object to be read again."""
 
     def __init__(self, config: RenderConfig):
-        if config.algorithm != "inline":
+        self.config = config
+        self._physical = config.algorithm == "physical"
+        if self._physical:
+            if config.sampler != "sfc32":
+                raise NotImplementedError(
+                    f"sampler {config.sampler!r} (the stateless threefry sampler of "
+                    "render_batch_physical_stateless) is not ported yet: ROADMAP "
+                    "Queue A #8, its stateless item; use 'sfc32'"
+                )
+            self._step = partial(
+                nee.render_batch_physical, num_bounces=config.bounces, nee=config.nee,
+                kernel=config.kernel,
+            )
+            # The BRDF kinds and the emitters, read on the host once per
+            # scene object (a read from a CUDA device waits for it).
+            self._scene_facts = (None, None, None)
+        elif config.algorithm == "inline":
+            step_fn = {
+                "auto": integrator.render_batch_auto,
+                "torch": integrator.render_batch_inline,
+                "cuda": integrator.render_batch_fused,
+            }[config.kernel]
+            self._step = partial(
+                step_fn,
+                num_bounces=config.bounces,
+                russian_roulette=config.russian_roulette,
+            )
+        else:
             raise NotImplementedError(
                 f"algorithm {config.algorithm!r} is not ported yet (ROADMAP "
-                "Queue A: #8 physical/NEE, #10 wavefront); use 'inline'"
+                "Queue A #10, wavefront); use 'inline' or 'physical'"
             )
-        step_fn = {
-            "auto": integrator.render_batch_auto,
-            "torch": integrator.render_batch_inline,
-            "cuda": integrator.render_batch_fused,
-        }[config.kernel]
-        self.config = config
         self.device = resolve_device(config.device)
         self._fused = config.kernel in ("auto", "cuda")
-        self._step = partial(
-            step_fn,
-            num_bounces=config.bounces,
-            russian_roulette=config.russian_roulette,
-        )
 
     def init_accumulator(self, seed: Optional[int] = None) -> Accumulator:
         return integrator.make_accumulator(
@@ -66,6 +89,13 @@ class Renderer:
                 "kernel='cuda' needs CUDA tensors; the accumulator is on "
                 f"{acc.color.device}"
             )
+        if self._physical:
+            if self._scene_facts[0] is not scene:
+                self._scene_facts = (
+                    scene, nee._present_kinds(scene), nee.nee_ops.scene_light_indices(scene)
+                )
+            _, kinds, light_idx = self._scene_facts
+            return self._step(scene, camera, acc, spp, kinds=kinds, light_idx=light_idx)
         if self._fused:
             # Glass-free scenes skip the kernel's glass block.
             return self._step(

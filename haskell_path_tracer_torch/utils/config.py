@@ -2,9 +2,14 @@
 
 Counterpart of ``haskell_path_tracer_tpu/utils/config.py``, with the
 reference's values as defaults (800x600, 15 bounces, reseed every 2000
-samples).  `kernel` picks the inline backend: "auto" (the CUDA megakernel
-on a CUDA device, the plain tensor loop elsewhere), "torch" (the plain
-loop) or "cuda" (the megakernel; raises off the GPU).
+samples).  `algorithm` is "inline" (the reference's parity estimator) or
+"physical" (corrected BRDFs, with next-event estimation unless `nee` is
+False).  `kernel` picks the backend: "auto" (the algorithm's CUDA
+megakernel on a CUDA device, the plain tensor loop elsewhere), "torch"
+(the plain loop) or "cuda" (the megakernel; raises off the GPU).
+`sampler` is the physical algorithm's RNG: "sfc32", the per-pixel stateful
+generator; "threefry" (the JAX package's stateless sampler) is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -19,9 +24,11 @@ from typing import Optional
 class RenderConfig:
     width: int = 800
     height: int = 600
-    # Only "inline" is ported; the JAX package's "wavefront" and
-    # "physical" are still to come (ROADMAP Queue A).
+    # "inline" or "physical"; the JAX package's "wavefront" is still to
+    # come (ROADMAP Queue A).
     algorithm: str = "inline"
+    nee: bool = True
+    sampler: str = "sfc32"
     kernel: str = "auto"
     bounces: int = 15
     reseed_interval: int = 2000
@@ -41,11 +48,20 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
         "--variant",
         choices=["inline", "wavefront", "streams", "physical"],
         default="inline",
-        help="rendering algorithm; only inline is ported so far",
+        help="rendering algorithm (physical = corrected BRDFs + NEE); "
+        "wavefront and streams are not ported yet",
+    )
+    parser.add_argument(
+        "--no-nee", dest="nee", action="store_false", default=True,
+        help="disable next-event estimation in physical mode",
+    )
+    parser.add_argument(
+        "--sampler", choices=["sfc32", "threefry"], default=d.sampler,
+        help="physical-mode RNG: stateful SFC32 (threefry is not ported yet)",
     )
     parser.add_argument(
         "--kernel", choices=["auto", "torch", "cuda"], default=d.kernel,
-        help="inline backend: auto (CUDA megakernel on a GPU, plain torch "
+        help="backend: auto (the CUDA megakernel on a GPU, plain torch "
         "elsewhere), or force one",
     )
     parser.add_argument(
@@ -67,6 +83,8 @@ def config_from_args(args: argparse.Namespace) -> RenderConfig:
         width=args.width,
         height=args.height,
         algorithm=algo,
+        nee=args.nee,
+        sampler=args.sampler,
         kernel=args.kernel,
         bounces=args.bounces,
         reseed_interval=args.reseed_interval,

@@ -101,15 +101,26 @@ def test_dielectric_split_matches_jax():
 
 
 def test_nearest_hit_above_threshold_raises():
+    """Above CHUNKED_THRESHOLD primitives `nearest_hit` no longer raises:
+    the chunked fold answers, with the one-plane fold's winners and t."""
     from haskell_path_tracer_torch.models.objects import (
         Scene, make_materials, make_planes, make_spheres,
     )
 
     n = tint.CHUNKED_THRESHOLD + 1
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(-5.0, 5.0, size=(n, 3))
+    pos[:, 2] -= 12.0
     spheres = make_spheres(
-        np.zeros((n, 3)), np.ones(n), make_materials([([1, 1, 1], 0, 0, 1)] * n, "cpu"), "cpu"
+        pos, rng.uniform(0.2, 1.0, n), make_materials([([1, 1, 1], 0, 0, 1)] * n, "cpu"), "cpu"
     )
     planes = make_planes([[0, -1, 0]], [[0, 1, 0]], make_materials([([1, 1, 1], 0, 0, 1)], "cpu"), "cpu")
-    o = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="Queue B #7"):
-        tint.nearest_hit(o, o + 1.0, Scene(spheres=spheres, planes=planes))
+    scene = Scene(spheres=spheres, planes=planes)
+    d = torch.as_tensor(rng.normal(size=(512, 3)).astype(np.float32))
+    d = d / d.norm(dim=-1, keepdim=True)
+    d[:, 2] = -d[:, 2].abs()
+    o = torch.zeros_like(d)
+    hit = tint.nearest_hit(o, d, scene)
+    t, prim = tint._nearest_t_prim_small(o, d, scene)
+    assert torch.equal(hit.t, t) and torch.equal(hit.prim, prim)
+    assert (hit.prim[hit.hit] < n).any() and (hit.prim[hit.hit] == n).any()

@@ -145,3 +145,14 @@ def test_kernel_source_and_build_flags():
     src = open(MK.SOURCE).read()
     assert 'extern "C" int hpt_megakernel_launch' in src
     assert MK.library_path().startswith(MK.BUILD_DIR)
+    # The NEE library (kernels #3 and #4): same flags, its two entry
+    # points, and the f32 constants of the plain version in its header.
+    from haskell_path_tracer_torch.ops import nee as NE
+    from haskell_path_tracer_torch.render import nee as RN
+
+    src = open(NE.SOURCE).read()
+    assert 'extern "C" int hpt_nee_launch' in src and 'extern "C" int hpt_probe_launch' in src
+    assert NE.library_path().startswith(MK.BUILD_DIR)
+    header = open(NE.HEADERS[0]).read()
+    assert "kMinD2 = 0x1.0c6f7cp-16f" in header and float.fromhex("0x1.0c6f7cp-16") == RN.MIN_D2
+    assert "kTwoPi = 6.28318548f" in header and np.float32(6.28318548) == np.float32(RN.TWO_PI)

@@ -95,7 +95,7 @@ def test_renderer_render_matches_jax_with_reseeding():
 
 def test_unported_algorithm_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(RenderConfig(device="cpu", algorithm="physical"))
+        Renderer(RenderConfig(device="cpu", algorithm="wavefront"))
 
 
 @pytest.mark.parametrize("writer", ["torch", "jax"])

@@ -1,12 +1,18 @@
 """Shared inputs for the PyTorch port's tests: the scenes both packages
 render, built with the JAX package and carried across as numpy arrays.
 
-Also writes the golden file that `chip_smoke.py` holds the CUDA kernels
+Also writes the golden files that `chip_smoke.py` holds the CUDA kernels
 against on a machine without JAX:
 
-    JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py
+    JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py [nee]
 
-regenerates ``tests/data/torch_port_golden.npz``: for each golden case,
+regenerates ``tests/data/torch_port_nee_golden.npz`` (seconds) and, without
+`nee`, ``tests/data/torch_port_golden.npz`` (minutes).  The NEE file holds,
+for each NEE case, the JAX package's inputs (scene arrays, primary rays,
+initial rng, the emitters' index tuple) and the outputs of its XLA
+estimator, `render_batch_physical(fused=False)`'s loop of
+`trace_physical`, at 128x16, 2 spp and 3 bounces (the estimator
+tests/test_pallas_nee.py ties to the Pallas NEE kernel).  The parity file holds, for each golden case,
 the JAX package's inputs (scene arrays, primary rays, initial rng) and
 outputs (`trace_inline_pallas` in interpret mode) at 128x16; and for each
 gradient case, the inputs, a radiance cotangent `wts` and the four
@@ -256,6 +262,71 @@ def golden_arrays(traces, grad_traces):
     return out
 
 
+NEE_GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "data", "torch_port_nee_golden.npz")
+NEE_SPP, NEE_BOUNCES = 2, 3
+# name -> accumulator seed; the scenes are tests/test_pallas_nee.py's.
+NEE_CASES = {"cornell8": 31, "tri": 32, "box_tri": 33}
+
+
+def jax_nee_scene(name):
+    """(scene, camera) of the JAX package for an NEE scene name: the scenes
+    of tests/test_pallas_nee.py with the cameras its tests use."""
+    import test_pallas_nee as T
+
+    origin_cam = JaxCamera.create([0.0] * 3, [0.0] * 3, 90.0)
+    return {
+        "cornell8": lambda: (T.cornell8(), J.initial_camera()),
+        "glassy": lambda: (T.glassy(), origin_cam),
+        "big200": lambda: (T.big(200), JaxCamera.create([0.0, 2.0, 0.0], [0.2, 0.0, 0.0], 90.0)),
+        "zero_light": lambda: (T.zero_light(), J.initial_camera()),
+        "tri": lambda: (T.tri_scene(), J.initial_camera()),
+        "box_tri": lambda: (T.box_tri_scene(), origin_cam),
+    }[name]()
+
+
+def jax_nee_trace(case):
+    """A NEE case's inputs and the JAX package's XLA estimator's outputs:
+    `spp` calls of `trace_physical(fused=False)` on the stored rays, the rng
+    threaded through, radiance summed — `render_batch_physical(fused=False)`
+    with its primary rays taken out of the compiled loop, so that the
+    stored rays are the ones traced (tests/test_pallas_nee.py:run_pair).
+    One jitted sample, compiled once per case."""
+    import jax
+
+    from haskell_path_tracer_tpu.ops.pallas_nee import scene_light_indices
+    from haskell_path_tracer_tpu.render.nee import trace_physical
+
+    jscene, jcam = jax_nee_scene(case)
+    rays = jax_primary_rays(jcam, W, H)
+    rng = J.make_accumulator(W, H, seed=NEE_CASES[case]).rng
+    sample = jax.jit(lambda r: trace_physical(jscene, rays, r, num_bounces=NEE_BOUNCES, fused=False))
+    radiance, rng_out = 0.0, rng
+    for _ in range(NEE_SPP):
+        rad, rng_out = sample(rng_out)
+        radiance = radiance + rad
+    return {
+        "scene": C.scene_to_numpy(jscene),
+        "origin": np.asarray(rays.origin, np.float32),
+        "direction": np.asarray(rays.direction, np.float32),
+        "rng_in": np.asarray(rng),
+        "light_idx": np.asarray(scene_light_indices(jscene), np.int32),
+        "radiance": np.asarray(radiance, np.float32),
+        "rng_out": np.asarray(rng_out),
+    }
+
+
+def nee_golden_arrays(traces):
+    """Flatten {case: jax_nee_trace(case)} into the NEE golden file's arrays."""
+    out = {}
+    for case, t in traces.items():
+        for k, v in t["scene"].items():
+            out[f"{case}__scene__{k}"] = v
+        for k in ("origin", "direction", "rng_in", "light_idx", "radiance", "rng_out"):
+            out[f"{case}__{k}"] = t[k]
+        out[f"{case}__config"] = np.array([NEE_SPP, NEE_BOUNCES], np.int32)
+    return out
+
+
 def lane_agreement(rng_a, rng_b, color_a, color_b):
     """(share of lanes whose rng words all agree, share of color values
     isclose at rtol = atol = 1e-4, the same share among the values that
@@ -270,10 +341,15 @@ def lane_agreement(rng_a, rng_b, color_a, color_b):
 
 
 if __name__ == "__main__":
-    arrays = golden_arrays(
-        {c: jax_trace(c) for c in GOLDEN_CASES},
-        {c: jax_grad_trace(c) for c in GRAD_CASES},
-    )
-    os.makedirs(os.path.dirname(GOLDEN_PATH), exist_ok=True)
-    np.savez_compressed(GOLDEN_PATH, **arrays)
-    print(f"wrote {GOLDEN_PATH} ({os.path.getsize(GOLDEN_PATH)} bytes)")
+    import sys
+
+    files = {NEE_GOLDEN_PATH: lambda: nee_golden_arrays({c: jax_nee_trace(c) for c in NEE_CASES})}
+    if sys.argv[1:] != ["nee"]:
+        files[GOLDEN_PATH] = lambda: golden_arrays(
+            {c: jax_trace(c) for c in GOLDEN_CASES},
+            {c: jax_grad_trace(c) for c in GRAD_CASES},
+        )
+    for path, arrays in files.items():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez_compressed(path, **arrays())
+        print(f"wrote {path} ({os.path.getsize(path)} bytes)")
