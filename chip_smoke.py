@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA libraries from ``haskell_path_tracer_torch/csrc``
-(one nvcc each, started together) and runs fifteen phases, each printing
+Builds the port's five CUDA libraries from ``haskell_path_tracer_torch/csrc``
+(one nvcc each, started together) and runs twenty phases, each printing
 one line; any failure raises and the script exits non-zero without
 printing a result:
 
   1. device: name, power limit (nvidia-smi), torch and CUDA versions;
-  2. build: nvcc of csrc/megakernel.cu, csrc/megakernel_vjp.cu and
-     csrc/nee_megakernel.cu (the NEE kernel and the probe), timed;
+  2. build: nvcc of csrc/megakernel.cu, csrc/megakernel_vjp.cu,
+     csrc/nee_megakernel.cu (the NEE kernel and the probe),
+     csrc/nee_megakernel_vjp.cu (the NEE backward) and csrc/sphere_fold.cu
+     (the nearest-sphere and dual folds), timed;
   3. forward kernel against its plain PyTorch version on the card, at
      800x600 / 15 bounces / 1 spp, 512x512 / 8 bounces / 4 spp and a
      ragged 333x97, on the reference, mixed-kinds and glass scenes and with
@@ -65,7 +67,37 @@ printing a result:
      bounces) and 4 (1920x1088 / 256 spp / 4 bounces, presort on and off)
      with the live share from the telemetry, the probe alone, the kernel
      and its plain version at the serving shape (800x600 / 15 / 1 spp),
-     and `Renderer.step` at 1 spp.
+     and `Renderer.step` at 1 spp;
+ 16. NEE backward against its plain version: `loss_and_grad(estimator=
+     "physical", backend="cuda", light_idx)` against backend="torch", and
+     the kernel in raster and sorted order against `backward_reference`
+     (autograd of the plain trace, its cotangents mapped to the scene's
+     leaves) on Cornell, config 8's triangle emitters, glass, no emitter,
+     1000 spheres, a ragged 67x29 and 15 bounces; on config 8's scene,
+     whose two emitter triangles are coplanar and overlap, the vertex
+     fields are reported, not held (see `TIED_FIELDS`); the Function's
+     forward bit-equal to the NEE kernel's, and the sorted frame's to the
+     raster one; the kernel refuses 17 bounces;
+ 17. the kernel route against the JAX package's gradients
+     (tests/data/torch_port_nee_grad_golden.npz);
+ 18. the nearest-sphere and dual-fold kernels against their plain versions
+     (1000 spheres at 1920x1088, 20000 at 320x180, bit for bit),
+     `trace_physical(fused=True)` against the plain loop, and the
+     `light_idx=None` gradient route, counted from 0, against
+     backend="torch";
+ 19. the physical training path, counted from 0: SGD through
+     `loss_and_grad(estimator="physical", light_idx)` on suite config 7's
+     scene towards a target with the emitters' light halved, 5 steps at
+     512x512 / 1 spp / 4 bounces and 2 at 1920x1088 / 8 / 4; every step
+     launches the NEE forward, the probe (sorted frame) and the backward
+     once, the loss falls;
+ 20. gradient times at config 7's shapes: the backward and forward
+     kernels in both frames, the SGD step in both frames; the backward
+     kernel held against its plain version at 512x512 / 1 / 4 (both
+     frames, the plain over row tiles) and on a full-width strip of
+     1920x1088 / 8 / 4 (the kernel launched on the whole image with the
+     cotangent zero outside the strip), and timed with it at 512x512; the
+     two folds at 1920x1088 x 1000 spheres, with their bounds.
 
 Lane tolerance of the forward (tests/test_pallas.py): >= 99.5% of lanes
 with equal rng words, >= 99% of color values isclose at rtol = atol =
@@ -80,12 +112,19 @@ of lanes with a differing rng, and radiance within 1e-4 + 1e-3 |ref| on
 all but 0.5% of the others.  Probe: the winner equal on >= 99.95% of lanes
 and t within 1e-6 relative where it is.
 
+Gradient tolerance of the NEE backward (tests/test_pallas_nee_vjp.py):
+loss rtol 1e-5 and, per SceneParams field, max|a - b| / max|b| below 5e-3;
+ray cotangents per lane, off on at most 0.5% of lanes.  The dual-query
+route: rtol 5e-4, atol 5e-6 (tests/test_grad.py).
+
 The line before the last is a JSON object of the kernels with their
-launches on the three main paths (phases 5, 9 and 14), their times, their
-plain versions' and their bounds at each path's shape (the forward and
-the NEE kernel at 800x600 / 15 bounces / 1 spp, the backward at 512x512 /
-64 spp / 8 bounces, the probe at 800x600 on the config-4 scene); the last
-line is {"ok": true, "device": {...}}.
+launches on the main paths (phases 5, 9, 14, 19, and 18's dual-query
+route), their times, their plain versions' and their bounds at each path's
+shape (the forward and the NEE kernel at 800x600 / 15 bounces / 1 spp, the
+backward at 512x512 / 64 spp / 8 bounces, the probe at 800x600 on the
+config-4 scene, the NEE backward at 512x512 / 1 / 4 on config 7's scene,
+the two folds at 1920x1088 on it); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -114,7 +153,16 @@ from haskell_path_tracer_torch.models.objects import Camera, Rays  # noqa: E402
 from haskell_path_tracer_torch.ops import megakernel as MK  # noqa: E402
 from haskell_path_tracer_torch.ops import megakernel_vjp as V  # noqa: E402
 from haskell_path_tracer_torch.ops import nee as NE  # noqa: E402
-from haskell_path_tracer_torch.ops.intersect import INFINITE, nearest_t_prim  # noqa: E402
+from haskell_path_tracer_torch.ops import nee_vjp as NV  # noqa: E402
+from haskell_path_tracer_torch.ops import sphere_fold as SF  # noqa: E402
+from haskell_path_tracer_torch.render import nee as RN  # noqa: E402
+from haskell_path_tracer_torch.ops.intersect import (  # noqa: E402
+    CHUNKED_THRESHOLD,
+    EPSILON,
+    INFINITE,
+    nearest_t_prim,
+    sphere_nearest_chunked,
+)
 from haskell_path_tracer_torch.models import scenes as SC  # noqa: E402
 from haskell_path_tracer_torch.models.io import save_scene  # noqa: E402
 from haskell_path_tracer_torch.render.nee import _present_kinds  # noqa: E402
@@ -132,7 +180,8 @@ GRAD_TOL, GRAD_TOL_BOX_TRI = 1e-2, 2e-2
 # Pitch of phase 7's cameras below each scene's own: no lane grazes a
 # sphere (tests/test_pallas_vjp.py), and the rays still meet the spheres.
 PITCH = 0.3
-LR = 1e-6  # SGD step of benchmarks/suite.py config 5
+LR = 1e-6  # SGD step of benchmarks/suite.py configs 5 and 7
+LR_FIELDS = {f: LR for f in G.SceneParams._fields}
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of its bytes over the memory rate and its fp32 operations over the
@@ -809,6 +858,530 @@ def nee_times(dev, smi) -> tuple:
     return out, entries
 
 
+# The physical/NEE gradient (phases 16-20).  Per SceneParams field a
+# normalised error max|a - b| / max|b| below 5e-3, loss rtol 1e-5
+# (tests/test_pallas_nee_vjp.py); the dual-query route against the plain
+# one at rtol 5e-4, atol 5e-6 (tests/test_grad.py).
+NEE_GRAD_TOL, LOSS_RTOL = 5e-3, 1e-5
+FUSED_RTOL, FUSED_ATOL = 5e-4, 5e-6
+NEE_GRAD_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_nee_grad_golden.npz")
+# benchmarks/suite.py config 7: (width, height, spp, bounces, SGD steps here).
+CONFIG7 = ((512, 512, 1, 4, 5), (1920, 1088, 8, 4, 2))
+# The reverse of a live bounce, counted from csrc/nee_vjp.cuh as above for
+# a matte sphere winner with a sphere-light sample (the config-7 scene's
+# bounce; the other kinds cost about as much): the winner's distance and
+# normal again (38), the light sample again (77), the NEE term's reverse
+# (50), the cone's reverse (110), the cosine sample's (44), the normal's
+# (32), the hit point's (15) and the distance's (44), with the throughput's
+# (6).  The row sums' atomic adds are not counted.
+NEE_REVERSE_OPS = 416
+# Bytes per pixel of the backward: rays 24, rng 16 and the radiance
+# cotangent 12 in, ray cotangents 24 out, and in the sorted frame the lane
+# order and the probe's (t0, prim0), 12 more.  The tables are read and their
+# cotangents written, 4 B per entry each.  The dual fold: 12 words in
+# (shade point, two directions, t_light, light index, alive), 3 out.
+NEE_BWD_BYTES_PER_PIXEL, SORTED_BYTES_PER_PIXEL, DUAL_BYTES_PER_RAY = 76, 12, 60
+
+
+def field_errors(label, got, want, tol=NEE_GRAD_TOL, min_nonzero=1, tied=()) -> dict:
+    """Per-field normalised errors of two {field: tensor} gradients; the
+    fields in `tied` are reported under "tie_gap" and not held."""
+    errs, gaps, nonzero = {}, {}, 0
+    for f, w in want.items():
+        if w.numel() == 0:
+            continue
+        g = got[f]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: {f} is not finite")
+        err = ((g - w).abs().max() / torch.clamp(w.abs().max(), min=1e-6)).item()
+        (gaps if f in tied else errs)[f] = err
+        nonzero += int(w.abs().max() > 0)
+    bad = {f: e for f, e in errs.items() if e >= tol}
+    if bad or nonzero < min_nonzero:
+        raise AssertionError(f"{label}: normalised errors {bad}, {nonzero} nonzero fields")
+    out = {"max_err": max(errs.values()), "worst_field": max(errs, key=errs.get),
+           "nonzero_fields": nonzero}
+    return {**out, "tie_gap": gaps} if tied else out
+
+
+def lane_robust_error(label, got, want, tol=NEE_GRAD_TOL) -> float:
+    """A ray cotangent held per lane, as lane_parity counts lanes: the share
+    of lanes with max|a - b| / max|b| >= tol must stay within 0.5%."""
+    lane = (got - want).abs().amax(-1) / torch.clamp(want.abs().max(), min=1e-6)
+    off = (lane >= tol).double().mean().item()
+    if off > LANE_MAX_DIVERGED:
+        raise AssertionError(f"{label}: ray cotangent off on {off:.4%} of lanes")
+    return lane.max().item()
+
+
+# Config 8's two emitter triangles are coplanar and overlap, so a ray that
+# meets their overlap meets both at the same t.  Autograd of the plain
+# fold's min splits such a tie's cotangent between the two; the kernel, like
+# the TPU kernel it replaces, recomputes the distance of the fold's winner,
+# the first index, and gives it all to that one.  The vertex fields of that
+# scene are reported (`tie_gap`), not held; every other field is.
+TIED_FIELDS = {"tri_emitters": ("tri_v0", "tri_v1", "tri_v2")}
+
+
+def nee_grad_cases(dev):
+    """Phase 16's cases: (label, scene, camera, width, height, bounces, spp)."""
+    ref, cam4 = world.initial_camera(dev), Camera.create(*CAM4, 90.0, dev)
+    origin = Camera.create([0.0] * 3, [0.0] * 3, 90.0, dev)
+    return [
+        ("cornell8", SC.cornell_scene(dev), ref, 96, 64, 4, 2),
+        ("tri_emitters", SC.tri_emitter_scene(dev), ref, 96, 64, 4, 2),
+        ("glassy", SC.glassy_scene(dev), origin, 96, 64, 6, 2),
+        ("zero_light", SC.zero_light_scene(dev), ref, 96, 64, 4, 2),
+        ("big1000", SC.big_scene(dev, 1000), cam4, 64, 64, 4, 2),
+        # 1943 pixels: a ragged last block.
+        ("cornell8_ragged", SC.cornell_scene(dev), ref, 67, 29, 3, 1),
+        ("glassy_b15", SC.glassy_scene(dev), origin, 48, 32, 15, 1),
+    ]
+
+
+def nee_backward_vs_plain(dev) -> dict:
+    """Phase 16: on every case, `loss_and_grad(backend="cuda", light_idx)`
+    against backend="torch"; the backward kernel in raster and in sorted
+    order against the plain backward (`backward_reference`, autograd of the
+    plain trace, the kernel's table cotangents mapped to the scene's leaves
+    by `table_grads_to_leaves`); the Function's forward against the NEE
+    kernel and the sorted frame's against the raster one, bit for bit.  The
+    kernel refuses 17 bounces."""
+    cases, max_abs = [], 0.0
+    for label, scene, cam, w, h, bounces, spp in nee_grad_cases(dev):
+        li, kinds = NE.scene_light_indices(scene), _present_kinds(scene)
+        glossy, diel = 1 in kinds, 2 in kinds
+        tied = TIED_FIELDS.get(label, ())
+        rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), len(cases) + 200, dev)
+        params, target = G.scene_to_params(scene), torch.full((h, w, 3), 0.2, device=dev)
+        before = NV.LAUNCHES
+        loss_c, g_c = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
+                                      estimator="physical", backend="cuda", light_idx=li)
+        if NV.LAUNCHES != before + 1:
+            raise AssertionError(f"{label}: loss_and_grad(cuda) did not launch the backward kernel once")
+        loss_t, g_t = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
+                                      estimator="physical", backend="torch")
+        rel = abs(loss_c.item() - loss_t.item()) / abs(loss_t.item())
+        if rel > LOSS_RTOL:
+            raise AssertionError(f"{label}: loss {loss_c.item()} vs {loss_t.item()}")
+        rec = {"case": f"{label} {w}x{h} b{bounces} spp{spp}", "loss_rel_err": rel,
+               "loss_and_grad": field_errors(label, g_c._asdict(), g_t._asdict(),
+                                             min_nonzero=3 if label == "zero_light" else 8, tied=tied)}
+
+        wts = torch.as_tensor(np.random.default_rng(len(cases)).normal(size=(h, w, 3)).astype(np.float32),
+                              device=dev)
+        tables = NE.nee_scene_tables(scene, li)
+        want, w_o, w_d = NV.backward_reference(scene, rays, rng, wts, bounces, spp, kinds)
+        t0, prim0 = NE.launch_probe(tables, rays)
+        order = NE._presort_order(t0)
+        for frame, extra in (("raster", {}), ("sorted", {"order": order, "primary": (t0, prim0)})):
+            got = NV.launch_nee_backward(tables, rays, rng, wts, bounces, spp, glossy, diel, **extra)
+            leaf = NV.table_grads_to_leaves(scene, li, *got[:3])
+            rec[frame] = {
+                "vs_backward_reference": field_errors(f"{label} {frame}", leaf, want, tied=tied),
+                "d_origin": lane_robust_error(f"{label} {frame} d_origin", got[3], w_o),
+                "d_direction": lane_robust_error(f"{label} {frame} d_direction", got[4], w_d),
+            }
+            max_abs = max(max_abs, *((leaf[f] - x).abs().max().item() for f, x in want.items()
+                                     if x.numel() and f not in tied))
+        outs = [NV.trace_physical_nee_diff(scene, rays, rng, bounces, spp, li, kinds, sorted_lanes=s)
+                for s in (False, True)]
+        if not (torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])):
+            raise AssertionError(f"{label}: the sorted frame changed a pixel's radiance or rng")
+        fwd = NE.launch_nee(tables, rays, rng, bounces, spp, glossy, diel)
+        if not (torch.equal(outs[0][0], fwd[0]) and torch.equal(outs[0][1], fwd[1])):
+            raise AssertionError(f"{label}: the Function's forward is not the NEE kernel's")
+        rec["sorted_forward_bit_identical"] = True
+        cases.append(rec)
+    before = NV.LAUNCHES
+    try:
+        NV.launch_nee_backward(tables, rays, rng, wts, 17, 1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the NEE backward kernel took 17 bounces")
+    if NV.LAUNCHES != before:
+        raise AssertionError("a refused NEE backward launch was counted")
+    return {"max_abs_err": max_abs, "cases": cases}
+
+
+def nee_backward_vs_golden(dev) -> list:
+    """Phase 17: the kernel route (`trace_physical_nee_diff` through
+    `params_to_scene`) on the golden cases' inputs against `jax.vjp` of the
+    JAX package's XLA estimator."""
+    results = []
+    with np.load(NEE_GRAD_GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    for case in sorted({k.split("__")[0] for k in golden}):
+        arr = {k[len(case) + 2:]: v for k, v in golden.items() if k.startswith(f"{case}__")}
+        template = C.scene_from_numpy(
+            {k[len("scene__"):]: v for k, v in arr.items() if k.startswith("scene__")}, dev)
+        spp, bounces = arr["config"].tolist()
+        rng = C.rng_from_numpy(arr["rng_in"], dev)
+        o = torch.as_tensor(arr["origin"], device=dev).requires_grad_()
+        d = torch.as_tensor(arr["direction"], device=dev).requires_grad_()
+        leaves = [p.detach().requires_grad_() for p in G.scene_to_params(template)]
+        scene = G.params_to_scene(G.SceneParams(*leaves), template)
+        rad, _ = NV.trace_physical_nee_diff(scene, Rays(origin=o, direction=d), rng, bounces, spp,
+                                            light_idx=tuple(arr["light_idx"].tolist()))
+        wts = torch.as_tensor(arr["wts"], device=dev)
+        grads = torch.autograd.grad((rad / spp * wts).sum(), [*leaves, o, d], allow_unused=True)
+        got = {f: torch.zeros_like(x) if g is None else g
+               for f, g, x in zip(G.SceneParams._fields, grads, leaves)}
+        want = {f: torch.as_tensor(arr[f"d_{f}"], device=dev) for f in G.SceneParams._fields}
+        label = f"golden {case} 32x16 b{bounces} spp{spp}"
+        results.append({"case": label, **field_errors(label, got, want, min_nonzero=8),
+                        "d_origin": lane_robust_error(label, grads[-2], torch.as_tensor(arr["d_origin"], device=dev)),
+                        "d_direction": lane_robust_error(label, grads[-1],
+                                                         torch.as_tensor(arr["d_direction"], device=dev))})
+    return results
+
+
+def dual_inputs(scene, light_idx, w, h, seed, dev):
+    """The dual query's operands at the first bounce of (w, h) camera rays
+    of suite config 4's camera: shade points at the primary hits (alive
+    where there is one), BSDF directions in the normal's hemisphere, shadow
+    rays towards a random emitter, ending at its surface."""
+    rays = primary_rays(Camera.create(*CAM4, 90.0, dev), w, h)
+    o, dirs = rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)
+    t, prim = nearest_t_prim(o, dirs, scene, 0.0)
+    alive = t < INFINITE
+    p = o + dirs * torch.where(alive, t, 0.0)[:, None]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = torch.nn.functional.normalize(torch.randn(p.shape, device=dev, generator=gen), dim=-1)
+    d_bsdf = torch.where((n * dirs).sum(-1, keepdim=True) > 0, -n, n)
+    li = torch.tensor(light_idx, device=dev)[torch.randint(len(light_idx), (len(p),), device=dev, generator=gen)]
+    to_c = scene.spheres.pos[li] - p
+    dist = to_c.norm(dim=-1)
+    t_light = torch.clamp(dist - scene.spheres.radius[li], min=1e-3)
+    return (p.contiguous(), d_bsdf.contiguous(), (to_c / dist[:, None]).contiguous(), t_light.contiguous(),
+            li.to(torch.int32), alive.to(torch.int32))
+
+
+def nearest_plain(scene, o, d, eps=0.0):
+    """The nearest-sphere fold's plain version over tiles of 2^18 rays."""
+    parts = [sphere_nearest_chunked(o[s:s + (1 << 18)], d[s:s + (1 << 18)], scene.spheres, eps)
+             for s in range(0, len(o), 1 << 18)]
+    return torch.cat([t for t, _ in parts]), torch.cat([p for _, p in parts]).to(torch.int32)
+
+
+def fold_checks(dev) -> dict:
+    """Phase 18: the nearest-sphere kernel (the camera rays, eps = 0, and
+    the first bounce's BSDF rays, eps = EPSILON) and the dual-fold kernel
+    against their plain versions at 1000 spheres (1920x1088 rays) and 20000
+    (320x180), the dual fold with dead lanes; the dual-query trace against
+    the plain one (lane parity); the gradient's dual-query route
+    (`light_idx=None`), counted from 0, against backend="torch"."""
+    out, max_abs, nearest_abs = {}, 0.0, 0.0
+    for n_spheres, w, h in ((1000, 1920, 1088), (20000, 320, 180)):
+        scene = SC.big_scene(dev, n_spheres)
+        table = SF.sphere_table(scene.spheres.pos, scene.spheres.radius)
+        rays = primary_rays(Camera.create(*CAM4, 90.0, dev), w, h)
+        args = dual_inputs(scene, NE.scene_light_indices(scene), w, h, n_spheres, dev)
+        live = args[5] != 0
+        for label, o, d, eps in (("camera", rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3), 0.0),
+                                 ("bounce", args[0][live].contiguous(), args[1][live].contiguous(),
+                                  float(EPSILON))):
+            got = SF.launch_nearest_fold(table, o, d, eps)
+            want = nearest_plain(scene, o, d, eps)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"nearest fold at {n_spheres} spheres ({label} rays) differs "
+                                     "from its plain version")
+            hit = want[0] < INFINITE
+            nearest_abs = max(nearest_abs, (got[0] - want[0])[hit].abs().max().item())
+            out[f"nearest_vs_plain_{n_spheres}_spheres_{w}x{h}_{label}"] = {
+                "bit_equal": True, "rays": len(o), "hit_share": hit.double().mean().item()}
+        got = SF.launch_dual_fold(table, *args)
+        want = [], [], []
+        for s in range(0, len(args[0]), 1 << 18):
+            part = SF.sphere_dual_reference(*(a[s:s + (1 << 18)] for a in args),
+                                            scene.spheres.pos, scene.spheres.radius)
+            for acc, x in zip(want, part):
+                acc.append(x)
+        want = [torch.cat(x) for x in want]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"dual fold at {n_spheres} spheres differs from its plain version")
+        hit = want[0] < INFINITE
+        max_abs = max(max_abs, (got[0] - want[0])[hit].abs().max().item())
+        out[f"kernel_vs_plain_{n_spheres}_spheres_{w}x{h}"] = {
+            "bit_equal": True, "alive_share": args[5].double().mean().item(),
+            "hit_share": hit.double().mean().item(), "occluded_share": want[2].double().mean().item()}
+
+    scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+    rays, rng = primary_rays(cam, 256, 144), gen_seeds((144, 256), 18, dev)
+    fused = RN.trace_physical(scene, rays, rng, 4, fused=True)
+    plain = RN.trace_physical(scene, rays, rng, 4, fused=False)
+    out["fused_trace_vs_plain_256x144_b4"] = lane_parity("fused trace", fused, plain)
+
+    routes = []
+    for label, scene, cam, w, h in (("big1000", SC.big_scene(dev, 1000), cam, 128, 72),
+                                    ("cornell8", SC.cornell_scene(dev), world.initial_camera(dev), 96, 64)):
+        bounces, spp = 4, 2
+        rng = gen_seeds((h, w), 19, dev)
+        params, target = G.scene_to_params(scene), torch.full((h, w, 3), 0.2, device=dev)
+        NV.LAUNCHES = 0
+        SF.LAUNCHES.update(nearest_fold=0, dual_fold=0)
+        NE.LAUNCHES.update(nee_megakernel=0, primary_probe=0)
+        loss_c, g_c = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
+                                      estimator="physical", backend="cuda")
+        launches = {**SF.LAUNCHES, "nee_megakernel_vjp": NV.LAUNCHES, **NE.LAUNCHES}
+        # One primary hit per sample: the nearest-sphere kernel's above
+        # CHUNKED_THRESHOLD primitives, as in the JAX package.
+        primary = spp if scene.num_primitives > CHUNKED_THRESHOLD else 0
+        if launches != {"nearest_fold": primary, "dual_fold": spp * bounces, "nee_megakernel_vjp": 0,
+                        "nee_megakernel": 0, "primary_probe": 0}:
+            raise AssertionError(f"{label}: dual-query route launches {launches}")
+        loss_t, g_t = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
+                                      estimator="physical", backend="torch")
+        if abs(loss_c.item() - loss_t.item()) > LOSS_RTOL * abs(loss_t.item()):
+            raise AssertionError(f"{label}: dual-query loss {loss_c.item()} vs {loss_t.item()}")
+        for f in G.SceneParams._fields:
+            a, b = getattr(g_c, f), getattr(g_t, f)
+            if not torch.allclose(a, b, rtol=FUSED_RTOL, atol=FUSED_ATOL):
+                raise AssertionError(f"{label}: dual-query gradient {f} off by {(a - b).abs().max().item()}")
+        routes.append({"case": f"{label} {w}x{h} b{bounces} spp{spp}", "launches": launches,
+                       "max_abs_grad_diff": max((getattr(g_c, f) - getattr(g_t, f)).abs().max().item()
+                                                for f in G.SceneParams._fields if getattr(g_t, f).numel())})
+    out["gradient_route_light_idx_none"] = routes
+    out["launches"] = {k: routes[0]["launches"][k] for k in ("nearest_fold", "dual_fold")}
+    return {"max_abs_err": max_abs, "nearest_max_abs_err": nearest_abs, **out}
+
+
+# Fields that move geometry.  Phase 19's SGD leaves them: visibility is not
+# differentiated, so a move of any size flips single pixels between an
+# emitter and what lies behind it, and the loss jumps (1e-5 of the scale
+# did it within 5 steps of a CPU run at 96x96).
+GEOMETRY_FIELDS = ("sphere_pos", "sphere_radius", "plane_pos", "plane_normal", "box_lo", "box_hi",
+                   "tri_v0", "tri_v1", "tri_v2")
+
+
+def sgd_rates(params, grads) -> dict:
+    """SGD step sizes of the material fields, set from the first gradient
+    so that a field moves by at most 0.5% of its scale per step (the
+    suite's fixed lr 1e-6 barely moves this loss)."""
+    return {f: 5e-3 * (p.abs().max().item() + 1e-3) / g.abs().max().item()
+            for f, p, g in zip(G.SceneParams._fields, params, grads)
+            if f not in GEOMETRY_FIELDS and g.numel() and g.abs().max() > 0}
+
+
+def sgd_update(params, grads, rates):
+    return G.SceneParams(*(p - rates.get(f, 0.0) * g
+                           for f, p, g in zip(G.SceneParams._fields, params, grads)))
+
+
+def physical_training_path(dev) -> dict:
+    """Phase 19, counted from 0: SGD through `loss_and_grad(estimator=
+    "physical", light_idx=...)` on suite config 7's scene and camera towards
+    a target rendered with the emitters' illuminance halved, 5 steps at
+    512x512 / 1 spp / 4 bounces and 2 at 1920x1088 / 8 / 4."""
+    scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+    li, kinds = NE.scene_light_indices(scene), _present_kinds(scene)
+    params0 = G.scene_to_params(scene)
+    dimmer = G.params_to_scene(params0._replace(sphere_illum=params0.sphere_illum * 0.5), scene)
+    targets = []
+    with torch.no_grad():
+        for w, h, spp, bounces, _ in CONFIG7:
+            rng = gen_seeds((h, w), 1, dev)
+            targets.append((rng, G.render_radiance(dimmer, cam, rng, w, h, bounces, spp, estimator="physical",
+                                                   light_idx=li, kinds=kinds)))
+    torch.cuda.synchronize()
+
+    out = {}
+    NV.LAUNCHES = MK.LAUNCHES = V.LAUNCHES = 0
+    SF.LAUNCHES.update(nearest_fold=0, dual_fold=0)
+    NE.LAUNCHES.update(nee_megakernel=0, primary_probe=0)
+    for (w, h, spp, bounces, steps), (rng, target) in zip(CONFIG7, targets):
+        label = f"{w}x{h}_spp{spp}_b{bounces}"
+        sort = NV.sorted_default(scene)
+        params, losses, rates = params0, [], None
+        t0 = time.perf_counter()
+        for step in range(steps):
+            before = (NE.LAUNCHES["nee_megakernel"], NE.LAUNCHES["primary_probe"], NV.LAUNCHES)
+            loss, grads = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
+                                          estimator="physical", light_idx=li, kinds=kinds)
+            after = (NE.LAUNCHES["nee_megakernel"], NE.LAUNCHES["primary_probe"], NV.LAUNCHES)
+            if tuple(a - b for a, b in zip(after, before)) != (1, int(sort), 1):
+                raise AssertionError(f"{label} step {step}: launches {before} -> {after}")
+            bad = [f for f, g in grads._asdict().items() if not torch.isfinite(g).all()]
+            if bad or not torch.isfinite(loss):
+                raise AssertionError(f"{label} step {step}: not finite: {bad}")
+            losses.append(loss)
+            rates = rates or sgd_rates(params, grads)
+            params = sgd_update(params, grads, rates)
+        with torch.no_grad():
+            losses.append(G.image_loss(params, scene, cam, target, rng, bounces, spp, estimator="physical",
+                                       light_idx=li, kinds=kinds))
+        losses = [float(x) for x in losses]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: the loss did not fall: {losses}")
+        out[label] = {"losses": losses, "rates": rates, "sorted_frame": sort,
+                      "wall_s": time.perf_counter() - t0}
+    out["launches"] = {"nee_megakernel": NE.LAUNCHES["nee_megakernel"],
+                       "primary_probe": NE.LAUNCHES["primary_probe"], "nee_megakernel_vjp": NV.LAUNCHES,
+                       **SF.LAUNCHES, "megakernel": MK.LAUNCHES, "megakernel_vjp": V.LAUNCHES}
+    if any(out["launches"][k] for k in ("nearest_fold", "dual_fold", "megakernel", "megakernel_vjp")):
+        raise AssertionError(f"physical training path launched other kernels: {out['launches']}")
+    return out
+
+
+def nee_bwd_bound(tables, live, pixels, sorted_frame) -> dict:
+    """The backward's least time: the forward's operations (without the
+    primary fold in the sorted frame, which reads the probe's), the reverse
+    per live bounce, and its bytes."""
+    ops = nee_ops(tables, live, pixels) + live * NEE_REVERSE_OPS
+    if sorted_frame:
+        ops -= pixels * sum(n * f for n, f in zip(tables.counts, PRIMARY_FOLD_OPS))
+    nbytes = pixels * (NEE_BWD_BYTES_PER_PIXEL + SORTED_BYTES_PER_PIXEL * sorted_frame)
+    return {**bound(nbytes + 2 * nee_table_bytes(tables), ops), "ops": ops}
+
+
+def physical_training_times(dev, smi) -> tuple:
+    """Phase 20, on CUDA events: at config 7's two shapes, the backward and
+    forward kernels in raster and sorted order and the whole SGD step in
+    both frames (suite rays/s: W H spp b 2 per step, suite.py:477), with
+    each kernel's bound; the backward kernel held against its plain version
+    at both shapes, and the two timed at 512x512 / 1 / 4; the two folds at
+    1920x1088 x 1000 spheres.  Returns the record and the kernels-line
+    entries."""
+    scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+    li, kinds = NE.scene_light_indices(scene), _present_kinds(scene)
+    tables, params = NE.nee_scene_tables(scene, li), G.scene_to_params(scene)
+    out = {"nvidia_smi": smi}
+    for w, h, spp, bounces, _ in CONFIG7:
+        rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 1, dev)
+        wts = torch.as_tensor(np.random.default_rng(w).normal(size=(h, w, 3)).astype(np.float32), device=dev)
+        live = int(NE.launch_nee(tables, rays, rng, bounces, spp, False, False, telemetry=True)[2].sum())
+        t0, prim0 = NE.launch_probe(tables, rays)
+        order, primary = NE._presort_order(t0), (t0, prim0)
+        rec = {"live_share": live / (w * h * spp * bounces)}
+        for frame, extra in (("raster", {}), ("sorted", {"order": order, "primary": primary})):
+            rec[f"backward_{frame}"] = {
+                **cuda_times(lambda: NV.launch_nee_backward(tables, rays, rng, wts, bounces, spp, False, False,
+                                                            **extra), 5 if w > 512 else 20),
+                **nee_bwd_bound(tables, live, w * h, frame == "sorted")}
+            rec[f"forward_{frame}"] = cuda_times(
+                lambda: NE.launch_nee(tables, rays, rng, bounces, spp, False, False, **extra), 5 if w > 512 else 20)
+        rec["probe_and_order"] = cuda_times(lambda: NE._presort_order(NE.launch_probe(tables, rays)[0]), 10)
+        target = torch.zeros((h, w, 3), device=dev)
+        gate = NV.sorted_default
+        try:
+            for frame in ("raster", "sorted"):
+                NV.sorted_default = lambda _scene, frame=frame: frame == "sorted"
+                step = cuda_times(lambda: sgd_update(params, G.loss_and_grad(
+                    params, scene, cam, target, rng, num_bounces=bounces, spp=spp, estimator="physical",
+                    light_idx=li, kinds=kinds)[1], LR_FIELDS), 3 if w > 512 else 10)
+                rec[f"sgd_step_{frame}"] = {**step, "suite_rays_per_s": w * h * spp * bounces * 2
+                                            / (step["median_ms"] / 1e3)}
+        finally:
+            NV.sorted_default = gate
+        rec["sorted_default"] = NV.sorted_default(scene)
+        out[f"config7_{w}x{h}_spp{spp}_b{bounces}"] = rec
+
+    # The backward kernel held against its plain version at the main path's
+    # shapes: 512x512 / 1 / 4 whole, in both frames (the plain over row
+    # tiles, timed once), and a full-width strip of 1920x1088 / 8 / 4, the
+    # kernel launched on the whole image with the cotangent zero outside
+    # the strip.
+    def plain_tiles(rays, rng, wts, spp, rows):
+        leaf, d_o, d_d = None, [], []
+        for r in range(0, rays.origin.shape[0], rows):
+            g, g_o, g_d = NV.backward_reference(
+                scene, Rays(origin=rays.origin[r:r + rows], direction=rays.direction[r:r + rows]),
+                rng[r:r + rows], wts[r:r + rows], 4, spp, kinds)
+            leaf = g if leaf is None else {f: leaf[f] + g[f] for f in g}
+            d_o.append(g_o)
+            d_d.append(g_d)
+        return leaf, torch.cat(d_o), torch.cat(d_d)
+
+    def held(label, got, want, rows=slice(None)):
+        leaf = NV.table_grads_to_leaves(scene, li, *got[:3])
+        return {"vs_backward_reference": field_errors(label, leaf, want[0], min_nonzero=4),
+                "d_origin": lane_robust_error(f"{label} d_origin", got[3][rows], want[1]),
+                "d_direction": lane_robust_error(f"{label} d_direction", got[4][rows], want[2]),
+                "max_abs_err": max((leaf[f] - x).abs().max().item() for f, x in want[0].items()
+                                   if x.numel())}
+
+    w, h, spp = 512, 512, 1
+    rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 2, dev)
+    wts = torch.as_tensor(np.random.default_rng(h).normal(size=(h, w, 3)).astype(np.float32), device=dev)
+    live = int(NE.launch_nee(tables, rays, rng, 4, spp, False, False, telemetry=True)[2].sum())
+    t0, prim0 = NE.launch_probe(tables, rays)
+    frames = {"raster": {}, "sorted": {"order": NE._presort_order(t0), "primary": (t0, prim0)}}
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain_tiles(rays, rng, wts, spp, 32)
+    end.record()
+    torch.cuda.synchronize()
+    sort = NV.sorted_default(scene)
+    rec = {"plain": {"n": 1, "median_ms": start.elapsed_time(end)}, "sorted_frame": sort,
+           **nee_bwd_bound(tables, live, w * h, sort)}
+    for frame, extra in frames.items():
+        got = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False, False, **extra)
+        rec[f"held_{frame}"] = held(f"backward {w}x{h} {frame}", got, want)
+    rec["kernel"] = cuda_times(lambda: NV.launch_nee_backward(
+        tables, rays, rng, wts, 4, spp, False, False, **frames["sorted" if sort else "raster"]), 20)
+    out["backward_vs_plain_512x512_spp1_b4"] = rec
+
+    w, h, spp, strip = 1920, 1088, 8, slice(512, 576)
+    rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 3, dev)
+    wts = torch.zeros((h, w, 3), device=dev)
+    wts[strip] = torch.as_tensor(np.random.default_rng(w).normal(size=(64, w, 3)).astype(np.float32),
+                                 device=dev)
+    want = plain_tiles(Rays(origin=rays.origin[strip], direction=rays.direction[strip]), rng[strip],
+                       wts[strip], spp, 16)
+    t0, prim0 = NE.launch_probe(tables, rays)
+    rec = {}
+    for frame, extra in (("raster", {}), ("sorted", {"order": NE._presort_order(t0), "primary": (t0, prim0)})):
+        got = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False, False, **extra)
+        outside = torch.cat([got[3][:strip.start], got[3][strip.stop:], got[4][:strip.start],
+                             got[4][strip.stop:]])
+        if outside.abs().max() != 0:
+            raise AssertionError(f"strip {frame}: a ray cotangent outside the strip is not 0")
+        rec[f"held_{frame}"] = held(f"backward {w}x{h} strip {frame}", got, want, strip)
+    out[f"backward_vs_plain_{w}x{h}_spp{spp}_b4_rows{strip.start}_{strip.stop}"] = rec
+
+    # The two folds at 1920x1088 x 1000 spheres: the nearest fold on the
+    # camera rays (the dual-query trace's primary hit), the dual fold at the
+    # first bounce.
+    rays = primary_rays(cam, 1920, 1088)
+    o, d = rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)
+    table = SF.sphere_table(scene.spheres.pos, scene.spheres.radius)
+    n, P = o.shape[0], scene.spheres.count
+    nearest_ops = n * P * PRIMARY_FOLD_OPS[0]
+    out["nearest_fold_1920x1088_1000_spheres"] = {
+        "kernel": cuda_times(lambda: SF.launch_nearest_fold(table, o, d), 20),
+        "plain": cuda_times(lambda: nearest_plain(scene, o, d), 2),
+        **bound(PROBE_BYTES_PER_RAY * n + 4 * table.numel(), nearest_ops), "ops": nearest_ops}
+    args = dual_inputs(scene, li, 1920, 1088, 20, dev)
+    alive = int(args[5].sum())
+    dual_ops = alive * P * DUAL_FOLD_OPS[0]
+    out["dual_fold_1920x1088_1000_spheres"] = {
+        "kernel": cuda_times(lambda: SF.launch_dual_fold(table, *args), 20),
+        "plain": cuda_times(lambda: [SF.sphere_dual_reference(*(a[s:s + (1 << 18)] for a in args),
+                                                               scene.spheres.pos, scene.spheres.radius)
+                                     for s in range(0, n, 1 << 18)], 2),
+        "alive_share": alive / n,
+        **bound(DUAL_BYTES_PER_RAY * n + 4 * table.numel(), dual_ops), "ops": dual_ops}
+    main = out["backward_vs_plain_512x512_spp1_b4"]
+    dual = out["dual_fold_1920x1088_1000_spheres"]
+    nearest = out["nearest_fold_1920x1088_1000_spheres"]
+    entries = {
+        "nearest_fold": {"ms": nearest["kernel"]["median_ms"], "plain_ms": nearest["plain"]["median_ms"],
+                         "bound_ms": nearest["bound_ms"], "bound_by": nearest["bound_by"]},
+        "nee_megakernel_vjp": {"ms": main["kernel"]["median_ms"], "plain_ms": main["plain"]["median_ms"],
+                               "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                               "max_abs_err": max(r["max_abs_err"] for v in out.values()
+                                                  if isinstance(v, dict)
+                                                  for k, r in v.items() if k.startswith("held_"))},
+        "dual_fold": {"ms": dual["kernel"]["median_ms"], "plain_ms": dual["plain"]["median_ms"],
+                      "bound_ms": dual["bound_ms"], "bound_by": dual["bound_by"]},
+    }
+    return out, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -825,7 +1398,8 @@ def main() -> int:
 
     # 2. Build, from the sources in this checkout: one nvcc per source,
     # started together.
-    builds = {"megakernel": MK, "megakernel_vjp": V, "nee_megakernel": NE}
+    builds = {"megakernel": MK, "megakernel_vjp": V, "nee_megakernel": NE,
+              "nee_megakernel_vjp": NV, "sphere_fold": SF}
     for mod in builds.values():
         if os.path.exists(mod.library_path()):
             os.unlink(mod.library_path())
@@ -999,6 +1573,17 @@ def main() -> int:
     nee_record, nee_entries = nee_times(dev, smi)
     phase("nee_times", **nee_record)
 
+    # 16-20: the physical/NEE gradient.
+    nee_bwd = nee_backward_vs_plain(dev)
+    phase("nee_backward_vs_plain", **nee_bwd)
+    phase("nee_backward_vs_jax_golden", cases=nee_backward_vs_golden(dev))
+    folds = fold_checks(dev)
+    phase("folds", **folds)
+    physical_training = physical_training_path(dev)
+    phase("physical_training_path", **physical_training)
+    grad_record, grad_entries = physical_training_times(dev, smi)
+    phase("physical_training_times", **grad_record)
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -1040,6 +1625,33 @@ def main() -> int:
         "launches": physical["launches"]["primary_probe"],
         "max_abs_err": probe["max_abs_err"],
         **nee_entries["primary_probe"],
+        "library_ms": None,
+    }, {
+        "name": "nee_megakernel_vjp",
+        "route": "cuda",
+        "source": "haskell_path_tracer_torch/csrc/nee_megakernel_vjp.cu",
+        "replaces": "haskell_path_tracer_tpu/ops/pallas_nee_vjp.py:445",
+        "launches": physical_training["launches"]["nee_megakernel_vjp"],
+        **grad_entries["nee_megakernel_vjp"],
+        "max_abs_err": max(nee_bwd["max_abs_err"], grad_entries["nee_megakernel_vjp"]["max_abs_err"]),
+        "library_ms": None,
+    }, {
+        "name": "dual_fold",
+        "route": "cuda",
+        "source": "haskell_path_tracer_torch/csrc/sphere_fold.cu",
+        "replaces": "haskell_path_tracer_tpu/ops/pallas_intersect.py:186",
+        "launches": folds["launches"]["dual_fold"],
+        "max_abs_err": folds["max_abs_err"],
+        **grad_entries["dual_fold"],
+        "library_ms": None,
+    }, {
+        "name": "nearest_fold",
+        "route": "cuda",
+        "source": "haskell_path_tracer_torch/csrc/sphere_fold.cu",
+        "replaces": "haskell_path_tracer_tpu/ops/pallas_intersect.py:35",
+        "launches": folds["launches"]["nearest_fold"],
+        "max_abs_err": folds["nearest_max_abs_err"],
+        **grad_entries["nearest_fold"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

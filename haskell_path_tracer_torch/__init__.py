@@ -12,8 +12,11 @@ over `SceneParams`) differentiates the same trace, on a CUDA device through
 the backward megakernel in ``csrc/megakernel_vjp.cu``.  The physical/NEE
 estimator (`render_batch_physical`, `Renderer(algorithm="physical")`) runs
 on a CUDA device as one launch of the NEE megakernel in
-``csrc/nee_megakernel.cu``.  This package imports neither JAX nor the JAX
-package.
+``csrc/nee_megakernel.cu``; its gradient (`loss_and_grad(...,
+estimator="physical", light_idx=...)`) through that kernel and the NEE
+backward megakernel in ``csrc/nee_megakernel_vjp.cu``, or, without an
+emitter tuple, through the dual-fold kernel in ``csrc/sphere_fold.cu``.
+This package imports neither JAX nor the JAX package.
 """
 
 from .models.objects import (
@@ -48,6 +51,8 @@ from .render.integrator import (
 )
 from .render.nee import render_batch_physical, render_sample_physical, trace_physical
 from .ops.nee import primary_probe, scene_light_indices
+from .ops.nee_vjp import trace_physical_nee_diff
+from .ops.sphere_fold import sphere_dual_query
 from .render.renderer import Renderer
 from .diff.grad import (
     SceneParams,

@@ -322,6 +322,102 @@ HPT_HD void sample_light(const Scene& S, const float* p, float us0, float us1,
   inv_pdf = inv_pdf_dir > 1e-9f ? inv_pdf_dir * L : 0.0f;
 }
 
+// The draws and the shadow decision of one live bounce: what the backward
+// replay (nee_vjp.cuh) keeps for the bounce's reverse.
+struct Draws {
+  float u[3];   // BSDF sample
+  float us[3];  // light choice and light sample
+  bool occ;     // the shadow ray is blocked (false with no emitter)
+};
+
+// The winner's hit point and normal: a sphere's normal is the normalised
+// offset from the center its payload row holds, a box's the face's, a
+// plane's and a triangle's the row's own.
+HPT_HD void hit_normal(const Scene& S, int prim, const float* m, const float* o,
+                       const float* d, float t, float* h, float* n) {
+  for (int i = 0; i < 3; ++i) h[i] = o[i] + d[i] * t;
+  if (prim < S.ns) {
+    float sv[3] = {h[0] - m[0], h[1] - m[1], h[2] - m[2]};
+    float nrm = fmaxf(sqrtf(dot3(sv, sv)), 1e-20f);
+    for (int i = 0; i < 3; ++i) n[i] = sv[i] / nrm;
+  } else if (prim >= S.ns + S.np && prim < S.ns + S.np + S.nb) {
+    box_normal(h, m, m + 3, n);
+  } else {
+    for (int i = 0; i < 3; ++i) n[i] = m[i];
+  }
+}
+
+// One live bounce from the ray (o, d) and its winner (t, prim): adds the
+// bounce's emission and NEE term into res, and moves the state (o, d, t,
+// prim, th, prev_spec, rng) on to the next bounce.  Records the draws and
+// the shadow decision in dr.
+template <bool HAS_GLOSSY, bool HAS_DIEL>
+HPT_HD void live_bounce(const Scene& S, float* o, float* d, float& t, int& prim,
+                        float* th, bool& prev_spec, Rng& rng, float* res,
+                        Draws& dr) {
+  // The winner's payload row, the hit point and the normal.
+  const float* m = S.payload + 12 * prim;
+  const float* color = m + 6;
+  const float il = m[9], param = m[10], kind = m[11];
+  float h[3], n[3];
+  hit_normal(S, prim, m, o, d, t, h, n);
+
+  // Emission: off a specular chain, or from a plane or box (never
+  // light-sampled).
+  if (prev_spec || (prim >= S.ns && prim < S.ns + S.np + S.nb))
+    for (int i = 0; i < 3; ++i) res[i] = res[i] + color[i] * il * th[i];
+
+  // BSDF sample: 3 draws.
+  for (int i = 0; i < 3; ++i) dr.u[i] = uniform(rng);
+  float nd[3];
+  cosine_hemisphere(n, dr.u[0], dr.u[1], nd);
+  bool is_spec = false;
+  if (HAS_GLOSSY && kind == 1.0f) {
+    float ia = dot3(d, n);
+    for (int i = 0; i < 3; ++i) nd[i] = d[i] - 2.0f * ia * n[i];
+    is_spec = true;
+  }
+  if (HAS_DIEL && kind == 2.0f) {
+    dielectric(d, n, param, dr.u[2], nd);
+    is_spec = true;
+  }
+
+  // Light sample: 3 draws, taken even with no emitter.
+  for (int i = 0; i < 3; ++i) dr.us[i] = uniform(rng);
+  dr.occ = false;
+  float t2;
+  int prim2;
+  if (S.nl > 0) {
+    float b[3], inv_pdf, t_l, emit[3];
+    int lgi;
+    sample_light(S, h, dr.us[0], dr.us[1], dr.us[2], b, inv_pdf, lgi, t_l, emit);
+    fold<true>(S, h, nd, kEpsilon, t2, prim2, b, t_l, lgi, dr.occ);
+    float cos_i = dot3(b, n);
+    if (!dr.occ && t_l < kInfinite && kind == 0.0f && cos_i > 0.0f) {
+      float w = cos_i * inv_pdf;
+      for (int i = 0; i < 3; ++i)
+        res[i] = res[i] + th[i] * (color[i] / kPi) * emit[i] * w;
+    }
+  } else {
+    bool unused = false;
+    fold<false>(S, h, nd, kEpsilon, t2, prim2, nullptr, 0.0f, -1, unused);
+  }
+
+  for (int i = 0; i < 3; ++i) {
+    th[i] = th[i] * color[i];
+    o[i] = h[i];
+    d[i] = nd[i];
+  }
+  t = t2;
+  prim = prim2;
+  prev_spec = is_spec;
+}
+
+// Whether a bounce is dead: near-zero throughput or a miss.
+HPT_HD bool dead_bounce(const float* th, float t) {
+  return dot3(th, th) <= kNearZeroEps || !(t < kInfinite);
+}
+
 // `spp` samples of one pixel, summed into acc, from the primary hit
 // (t0, prim0).  Every lane runs its own RNG stream, and each sample restarts
 // from the primary hit, so this one loop gives what the TPU kernel's legacy
@@ -334,7 +430,6 @@ template <bool HAS_GLOSSY, bool HAS_DIEL>
 HPT_HD void trace_pixel(const Scene& S, const float* po, const float* pd,
                         float t0, int prim0, Rng& rng, int spp, int num_bounces,
                         float* acc, int& steps) {
-  const int bsdf_only_end = S.ns + S.np + S.nb;
   for (int s = 0; s < spp; ++s) {
     float o[3] = {po[0], po[1], po[2]}, d[3] = {pd[0], pd[1], pd[2]};
     float t = t0;
@@ -342,74 +437,10 @@ HPT_HD void trace_pixel(const Scene& S, const float* po, const float* pd,
     float res[3] = {0.0f, 0.0f, 0.0f}, th[3] = {1.0f, 1.0f, 1.0f};
     bool prev_spec = true;  // camera rays see lights
     for (int bounce = 0; bounce < num_bounces; ++bounce) {
-      if (dot3(th, th) <= kNearZeroEps || !(t < kInfinite)) break;
+      if (dead_bounce(th, t)) break;
       ++steps;
-
-      // The winner's payload row, the hit point and the normal.
-      const float* m = S.payload + 12 * prim;
-      const float* color = m + 6;
-      const float il = m[9], param = m[10], kind = m[11];
-      float h[3], n[3];
-      for (int i = 0; i < 3; ++i) h[i] = o[i] + d[i] * t;
-      if (prim < S.ns) {
-        float sv[3] = {h[0] - m[0], h[1] - m[1], h[2] - m[2]};
-        float nrm = fmaxf(sqrtf(dot3(sv, sv)), 1e-20f);
-        for (int i = 0; i < 3; ++i) n[i] = sv[i] / nrm;
-      } else if (prim >= S.ns + S.np && prim < bsdf_only_end) {
-        box_normal(h, m, m + 3, n);
-      } else {
-        for (int i = 0; i < 3; ++i) n[i] = m[i];
-      }
-
-      // Emission: off a specular chain, or from a plane or box (never
-      // light-sampled).
-      if (prev_spec || (prim >= S.ns && prim < bsdf_only_end))
-        for (int i = 0; i < 3; ++i) res[i] = res[i] + color[i] * il * th[i];
-
-      // BSDF sample: 3 draws.
-      const float u1 = uniform(rng), u2 = uniform(rng), u3 = uniform(rng);
-      float nd[3];
-      cosine_hemisphere(n, u1, u2, nd);
-      bool is_spec = false;
-      if (HAS_GLOSSY && kind == 1.0f) {
-        float ia = dot3(d, n);
-        for (int i = 0; i < 3; ++i) nd[i] = d[i] - 2.0f * ia * n[i];
-        is_spec = true;
-      }
-      if (HAS_DIEL && kind == 2.0f) {
-        dielectric(d, n, param, u3, nd);
-        is_spec = true;
-      }
-
-      // Light sample: 3 draws, taken even with no emitter.
-      const float us0 = uniform(rng), us1 = uniform(rng), us2 = uniform(rng);
-      float t2;
-      int prim2;
-      if (S.nl > 0) {
-        float b[3], inv_pdf, t_l, emit[3];
-        int lgi;
-        sample_light(S, h, us0, us1, us2, b, inv_pdf, lgi, t_l, emit);
-        bool occ = false;
-        fold<true>(S, h, nd, kEpsilon, t2, prim2, b, t_l, lgi, occ);
-        float cos_i = dot3(b, n);
-        if (!occ && t_l < kInfinite && kind == 0.0f && cos_i > 0.0f) {
-          float w = cos_i * inv_pdf;
-          for (int i = 0; i < 3; ++i)
-            res[i] = res[i] + th[i] * (color[i] / kPi) * emit[i] * w;
-        }
-      } else {
-        bool unused = false;
-        fold<false>(S, h, nd, kEpsilon, t2, prim2, nullptr, 0.0f, -1, unused);
-      }
-
-      for (int i = 0; i < 3; ++i) {
-        th[i] = th[i] * color[i];
-        o[i] = h[i];
-        d[i] = nd[i];
-      }
-      t = t2;
-      prim = prim2;
-      prev_spec = is_spec;
+      Draws dr;
+      live_bounce<HAS_GLOSSY, HAS_DIEL>(S, o, d, t, prim, th, prev_spec, rng, res, dr);
     }
     for (int i = 0; i < 3; ++i) acc[i] = acc[i] + res[i];
   }

@@ -14,11 +14,16 @@ with the same semantics:
   * the rng state is a constant of each gradient evaluation, so the loss
     is a deterministic function of the parameters.
 
-`render_radiance` differentiates the inline parity trace through one of two
-backends: ``"cuda"``, the forward and backward megakernels
-(`ops/megakernel_vjp.py`, one launch of each per gradient), or ``"torch"``,
-the plain integrator with each bounce checkpointed.  ``"auto"`` takes
-``"cuda"`` exactly when the tensors live on a CUDA device.
+`render_radiance` differentiates one of two estimators.  The inline parity
+trace (``estimator="parity"``) runs through one of two backends:
+``"cuda"``, the forward and backward megakernels (`ops/megakernel_vjp.py`,
+one launch of each per gradient), or ``"torch"``, the plain integrator with
+each bounce checkpointed.  The physical/NEE estimator
+(``estimator="physical"``, the JAX package's `diff/grad.py:111-158`) runs
+through `_physical_radiance`'s routes: the NEE megakernel and its backward
+(`ops/nee_vjp.py`), the dual-query loop (`ops/sphere_fold.py`), or the
+plain loop.  ``"auto"`` takes ``"cuda"`` exactly when the tensors live on a
+CUDA device and, for the physical estimator, a CUDA route takes the scene.
 """
 
 from __future__ import annotations
@@ -30,9 +35,49 @@ import torch
 from ..models.camera import primary_rays
 from ..models.objects import Boxes, Camera, Materials, Planes, Scene, Spheres, Triangles
 from ..ops.megakernel_vjp import trace_inline_fused_diff
+from ..ops.nee_vjp import trace_physical_nee_diff
 from ..render.integrator import trace_inline
+from ..render.nee import trace_physical
 
 BACKENDS = ("auto", "torch", "cuda")
+
+
+def _physical_route(scene: Scene, light_idx) -> str | None:
+    """The CUDA route that takes `scene`: "nee" (the NEE megakernel and its
+    backward: an emitter tuple, no boxes, a sphere), "fused" (the
+    dual-query loop: spheres and planes only), or None."""
+    if light_idx is not None and not scene.boxes.count and scene.spheres.count:
+        return "nee"
+    if not scene.boxes.count and not scene.triangles.count and scene.spheres.count:
+        return "fused"
+    return None
+
+
+def _physical_radiance(scene: Scene, rays, rng_state, num_bounces, spp, backend, light_idx,
+                       kinds):
+    """The physical estimator's routes (`render_radiance`)."""
+    route = _physical_route(scene, light_idx)
+    if backend == "auto":
+        backend = "cuda" if rng_state.is_cuda and route is not None else "torch"
+    if backend == "cuda":
+        if route is None:
+            raise ValueError(
+                "backend='cuda' takes the physical gradient of scenes without boxes (with "
+                "light_idx) or of spheres and planes; use backend='torch' for this scene")
+        if not rng_state.is_cuda:
+            raise ValueError("backend='cuda' needs CUDA tensors")
+        if route == "nee":
+            rad_sum, _ = trace_physical_nee_diff(
+                scene, rays, rng_state, num_bounces=num_bounces, spp=spp, light_idx=light_idx,
+                kinds=kinds)
+            return rad_sum / spp
+    radiances = []
+    rng = rng_state
+    for _ in range(spp):
+        radiance, rng = trace_physical(scene, rays, rng, num_bounces, nee=True,
+                                       fused=backend == "cuda", kinds=kinds)
+        radiances.append(radiance)
+    return torch.stack(radiances).mean(dim=0)
 
 
 def render_radiance(
@@ -46,24 +91,44 @@ def render_radiance(
     backend: str = "auto",
     has_dielectric: bool | None = None,
     estimator: str = "parity",
+    light_idx: tuple | None = None,
+    kinds=None,
 ) -> torch.Tensor:
     """Differentiable expected-radiance image [H, W, 3]: the mean of `spp`
     samples, each advancing the rng.  `has_dielectric` (None: read the
-    scene's kinds) elides the CUDA kernels' glass block; the torch
-    backend always runs it."""
-    if estimator == "physical":
-        raise NotImplementedError(
-            "estimator='physical': the gradients of the corrected-BRDF + NEE "
-            "estimator are not ported yet: ROADMAP Queue A #8-#9 (#8's forward "
-            "is ported; #9 differentiates it)"
-        )
-    if estimator != "parity":
+    scene's kinds) elides the parity CUDA kernels' glass block; the torch
+    backend always runs it.
+
+    `estimator="physical"` differentiates the corrected-BRDF + NEE
+    estimator (`render/nee.py`).  backend="torch" averages `spp` plain
+    traces (`trace_physical(fused=False)`) under autograd.  backend="cuda"
+    takes, when `light_idx` (the emitter tuple,
+    `ops/nee.py:scene_light_indices`) is given on a scene without boxes and
+    with a sphere, the fast route: the NEE megakernel forward and its
+    backward kernel, one launch each per gradient (`trace_physical_nee_diff`);
+    otherwise, on a scene of spheres and planes, `spp` dual-query traces
+    (`trace_physical(fused=True)`) under autograd; any other scene raises.
+    `kinds` elides absent BRDF branches (read from the scene when None).
+
+    Frozen emitters: `light_idx` fixes the set of emitters for the whole
+    optimisation — the kernel samples exactly those, while the plain
+    routes read the emitters from `illuminance > 0` at every call.  If an
+    optimisation drives an emitter's illuminance across zero, the routes
+    part: the kernel keeps sampling an emitter that has gone dark (which
+    adds nothing) and never samples one that has lit up (its light still
+    arrives by BSDF pickup off specular chains, but matte NEE towards it is
+    lost).  Recompute `scene_light_indices` whenever the emitter set may
+    have changed."""
+    if estimator not in ("parity", "physical"):
         raise ValueError(f"unknown estimator {estimator!r}")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}, expected one of {BACKENDS}")
+    rays = primary_rays(camera, width, height)
+    if estimator == "physical":
+        return _physical_radiance(scene, rays, rng_state, num_bounces, spp, backend, light_idx,
+                                  kinds)
     if backend == "auto":
         backend = "cuda" if rng_state.is_cuda else "torch"
-    rays = primary_rays(camera, width, height)
 
     if backend == "cuda":
         if not rng_state.is_cuda:
@@ -189,14 +254,17 @@ def image_loss(
     backend: str = "auto",
     has_dielectric: bool | None = None,
     estimator: str = "parity",
+    light_idx: tuple | None = None,
+    kinds=None,
 ) -> torch.Tensor:
     """Mean squared error between the rendered radiance image and a target
-    [H, W, 3]: the inverse-rendering objective."""
+    [H, W, 3]: the inverse-rendering objective (arguments as in
+    `render_radiance`)."""
     scene = params_to_scene(params, template)
     h, w = target.shape[:2]
     img = render_radiance(
         scene, camera, rng_state, w, h, num_bounces, spp, backend,
-        has_dielectric, estimator,
+        has_dielectric, estimator, light_idx, kinds,
     )
     return ((img - target) ** 2).mean()
 

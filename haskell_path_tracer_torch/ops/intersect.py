@@ -200,7 +200,7 @@ def _first_min(dists):
     return kt, torch.clamp(karg, max=k - 1)
 
 
-def _merge_non_sphere(ray_o, ray_d, scene: Scene, t, prim, reject_below=0.0):
+def merge_non_sphere(ray_o, ray_d, scene: Scene, t, prim, reject_below=0.0):
     """Merge planes, boxes and triangles into a sphere-only (t, prim), in
     index order, so the first-primitive tie-break holds across kinds."""
     offset = scene.spheres.count
@@ -218,25 +218,31 @@ def _merge_non_sphere(ray_o, ray_d, scene: Scene, t, prim, reject_below=0.0):
     return t, prim
 
 
-def _nearest_t_prim_chunked(ray_o, ray_d, scene: Scene, reject_below=0.0):
-    """Large-scene nearest hit: the spheres in chunks of CHUNK_SIZE (the
-    last chunk is shorter, so nothing is padded), a strict `<` between
-    chunks, then the other kinds merged in index order."""
+def sphere_nearest_chunked(ray_o, ray_d, spheres: Spheres, reject_below=0.0):
+    """The nearest sphere (t, prim), (INFINITE, 0) on a miss: the spheres in
+    chunks of CHUNK_SIZE (the last chunk is shorter, so nothing is padded),
+    a strict `<` between chunks."""
     shape = ray_o.shape[:-1]
     t = torch.full(shape, INFINITE, dtype=torch.float32, device=ray_o.device)
     prim = torch.zeros(shape, dtype=torch.int64, device=ray_o.device)
-    sp = scene.spheres
-    for lo in range(0, sp.count, CHUNK_SIZE):
+    for lo in range(0, spheres.count, CHUNK_SIZE):
         chunk = Spheres(
-            pos=sp.pos[lo : lo + CHUNK_SIZE],
-            radius=sp.radius[lo : lo + CHUNK_SIZE],
+            pos=spheres.pos[lo : lo + CHUNK_SIZE],
+            radius=spheres.radius[lo : lo + CHUNK_SIZE],
             material=None,
         )
         c_t, c_arg = _first_min(sphere_distances(ray_o, ray_d, chunk, reject_below))
         better = c_t < t
         t = torch.where(better, c_t, t)
         prim = torch.where(better, lo + c_arg, prim)
-    return _merge_non_sphere(ray_o, ray_d, scene, t, prim, reject_below)
+    return t, prim
+
+
+def _nearest_t_prim_chunked(ray_o, ray_d, scene: Scene, reject_below=0.0):
+    """Large-scene nearest hit: `sphere_nearest_chunked`, then the other
+    kinds merged in index order."""
+    t, prim = sphere_nearest_chunked(ray_o, ray_d, scene.spheres, reject_below)
+    return merge_non_sphere(ray_o, ray_d, scene, t, prim, reject_below)
 
 
 def nearest_t_prim(ray_o, ray_d, scene: Scene, reject_below=0.0):

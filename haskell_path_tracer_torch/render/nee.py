@@ -41,11 +41,14 @@ from ..ops import brdf as brdf_ops
 from ..ops import nee as nee_ops
 from ..ops import rng as rng_ops
 from ..ops.intersect import (
+    CHUNKED_THRESHOLD,
     EPSILON,
     INFINITE,
     PLANE_DENOM_EPS,
     hit_from_t_prim,
+    merge_non_sphere,
     nearest_t_prim,
+    plane_distances,
     shadow_occluded,
 )
 
@@ -199,8 +202,11 @@ def _tri_area_sample(tris, t_idx, point, u1, u2):
     than 2 EPSILON to the sample (a shade point on the emitter itself; the
     rejected mass is a known, accepted bias of ~2e-4 scene units)."""
     v0 = tris.v0[t_idx]
-    e1 = tris.v1[t_idx] - v0
-    e2 = tris.v2[t_idx] - v0
+    return _tri_area_sample_rows(v0, tris.v1[t_idx] - v0, tris.v2[t_idx] - v0, point, u1, u2)
+
+
+def _tri_area_sample_rows(v0, e1, e2, point, u1, u2):
+    """`_tri_area_sample` of the triangles (v0, e1, e2), one per lane."""
     n = linalg.cross(e1, e2)
     n_norm = linalg.sqrt(torch.clamp(linalg.quadrance(n), min=1e-20))
     n_unit = n / n_norm[..., None]
@@ -223,8 +229,11 @@ def _tri_t_single(tris, t_idx, point, l_dir, reject_below=EPSILON):
     `triangle_distances`' f32 sequence (so the shadow window sees the value
     a full fold would); INFINITE on a miss."""
     v0 = tris.v0[t_idx]
-    e1 = tris.v1[t_idx] - v0
-    e2 = tris.v2[t_idx] - v0
+    return _tri_t_rows(v0, tris.v1[t_idx] - v0, tris.v2[t_idx] - v0, point, l_dir, reject_below)
+
+
+def _tri_t_rows(v0, e1, e2, point, l_dir, reject_below=EPSILON):
+    """`_tri_t_single` of the triangles (v0, e1, e2), one per lane."""
     pvec = linalg.cross(l_dir, e2)
     det = linalg.dot(e1, pvec)
     inv_det = 1.0 / torch.where(det.abs() < 1e-30, 1e-30, det)
@@ -385,6 +394,129 @@ def _trace(scene: Scene, rays: Rays, rng_state, num_bounces, nee, kinds):
     return result, rng, live
 
 
+def _trace_physical_fused(scene: Scene, rays: Rays, rng_state, num_bounces: int = 8,
+                          kinds=None):
+    """The NEE trace with the dual query (`ops/sphere_fold.py`): one pass
+    over the sphere table per bounce answers both the next BSDF ray's
+    nearest sphere and the shadow ray's occlusion from the shared shade
+    point, instead of `_trace`'s two folds; the planes are merged after it.
+    Sampling decisions (draw order, light and cone sampling, emission
+    bookkeeping) are `trace_physical(nee=True)`'s.  Spheres and planes only.
+
+    The emitters come from a compact light table built once per trace:
+    centers, radii, emission and global index, one row per emissive sphere,
+    chosen by the rank rule clamp(floor(u * count), 0, count - 1) of
+    `_select_light`.  The primary hit (eps = 0) is `sphere_nearest`'s above
+    CHUNKED_THRESHOLD primitives, the planes merged after it, as the JAX
+    package's `nearest_hit` takes it.  Differentiable like `_trace`, with the
+    sphere winners' distances through the two queries' backward."""
+    from ..ops.sphere_fold import sphere_dual_query, sphere_nearest
+
+    if scene.triangles.count or scene.boxes.count or not scene.spheres.count:
+        raise ValueError("the fused NEE trace takes scenes of spheres and planes, with a sphere")
+    if scene.spheres.count >= 1 << 24:
+        raise ValueError("the light table carries sphere indices as f32: fewer than 2^24 spheres")
+    n_spheres = scene.spheres.count
+    shape = rays.origin.shape[:-1]
+    pos, radius, mat = scene.spheres.pos, scene.spheres.radius, scene.spheres.material
+    if kinds is None:
+        kinds = _present_kinds(scene)
+
+    l_mask, _, l_count = _light_fields(scene)
+    lsel = torch.nonzero(l_mask).reshape(-1)
+    lsel = torch.cat([lsel, lsel.new_zeros(n_spheres - len(lsel))])
+    light_table = torch.cat([
+        pos[lsel], radius[lsel][:, None], mat.color[lsel], mat.illuminance[lsel][:, None],
+        lsel[:, None].to(torch.float32),
+    ], dim=-1)  # [n_spheres, 9]
+
+    def merge_planes(o, d, t, prim):
+        """The planes after the spheres, in the shade frame (dist >= EPSILON)."""
+        if not scene.planes.count:
+            return t, prim
+        pd = plane_distances(o, d, scene.planes)
+        pd = torch.where(pd < EPSILON, INFINITE, pd)
+        m = pd.shape[-1]
+        kt = pd.amin(dim=-1)
+        iota = torch.arange(m, device=pd.device)
+        karg = torch.where(pd == kt[..., None], iota, m).amin(dim=-1)
+        better = kt < t
+        return (torch.where(better, kt, t),
+                torch.where(better, n_spheres + torch.clamp(karg, max=m - 1), prim))
+
+    ray_o, ray_d = rays.origin, rays.direction
+    if scene.num_primitives > CHUNKED_THRESHOLD:
+        t, prim = sphere_nearest(ray_o.reshape(-1, 3), ray_d.reshape(-1, 3), pos, radius)
+        t, prim = merge_non_sphere(ray_o, ray_d, scene, t.reshape(shape),
+                                   prim.reshape(shape).long())
+    else:
+        t, prim = nearest_t_prim(ray_o, ray_d, scene)
+    rng = rng_state
+    result = torch.zeros_like(ray_o)
+    throughput = torch.ones_like(ray_o)
+    prev_spec = torch.ones(shape, dtype=torch.bool, device=ray_o.device)
+    for _ in range(num_bounces):
+        hit = hit_from_t_prim(ray_o, ray_d, t, prim, scene)
+        dead = linalg.near_zero(throughput) | ~hit.hit
+
+        take_emit = prev_spec | (hit.prim >= n_spheres)
+        emit = brdf_ops.emittance(hit) * throughput
+        new_result = result + torch.where(take_emit[..., None], emit, 0.0)
+
+        _, next_d, tmod, is_spec, rng2 = sample_physical(hit, ray_d, rng, kinds=kinds)
+
+        un, rng2 = rng_ops.gen_vec(rng2)
+        us = (un + 1.0) * 0.5
+        k = torch.clamp(torch.floor(us[..., 0] * l_count), min=0.0)
+        k = torch.minimum(k, torch.clamp(l_count - 1.0, min=0.0)).long()
+        lrow = light_table[k]
+        l_pos, l_rad = lrow[..., 0:3], lrow[..., 3]
+        l_emit = lrow[..., 4:7] * lrow[..., 7:8]
+        l_idx = torch.round(lrow[..., 8]).to(torch.int32)
+        l_dir, solid_angle = _cone_sample(l_pos, l_rad, hit.point, us[..., 1], us[..., 2])
+        inv_pdf = torch.where((l_count > 0) & (solid_angle > 1e-9), solid_angle * l_count, 0.0)
+        t_light = _sphere_t_single(hit.point, l_dir, l_pos, l_rad)
+        t2, prim2, occ = sphere_dual_query(
+            hit.point.reshape(-1, 3), next_d.reshape(-1, 3), l_dir.reshape(-1, 3),
+            t_light.reshape(-1), l_idx.reshape(-1), (~dead).reshape(-1).to(torch.int32),
+            pos, radius,
+        )
+        t2, prim2, occ = t2.reshape(shape), prim2.reshape(shape).long(), occ.reshape(shape)
+        t2, prim2 = merge_planes(hit.point, next_d, t2, prim2)
+        if scene.planes.count:
+            pds = plane_distances(hit.point, l_dir, scene.planes)
+            occ = occ | ((pds >= EPSILON) & (pds < t_light[..., None])).any(dim=-1)
+
+        visible = ~occ & (t_light < INFINITE)
+        cos_i = linalg.dot(l_dir, hit.normal)
+        w = visible & (hit.brdf_kind == BRDF_MATTE) & (cos_i > 0.0)
+        contrib = throughput * _div(hit.color, PI) * l_emit * (cos_i * inv_pdf)[..., None]
+        new_result = new_result + torch.where(w[..., None], contrib, 0.0)
+
+        new_throughput = throughput * tmod
+        d3 = dead[..., None]
+        ray_o = torch.where(d3, ray_o, hit.point)
+        ray_d = torch.where(d3, ray_d, next_d)
+        t = torch.where(dead, t, t2)
+        prim = torch.where(dead, prim, prim2)
+        rng = torch.where(d3, rng, rng2)
+        result = torch.where(d3, result, new_result)
+        throughput = torch.where(d3, 0.0, new_throughput)
+        prev_spec = torch.where(dead, prev_spec, is_spec)
+    return result, rng
+
+
+def _fused_eligible(scene: Scene) -> bool:
+    """The JAX package's rule with "tpu" read as "cuda": a scene of more
+    than CHUNKED_THRESHOLD spheres and no boxes or triangles, on CUDA."""
+    return (
+        scene.spheres.pos.is_cuda
+        and scene.spheres.count > CHUNKED_THRESHOLD
+        and not scene.boxes.count
+        and not scene.triangles.count
+    )
+
+
 def trace_physical(
     scene: Scene,
     rays: Rays,
@@ -394,16 +526,21 @@ def trace_physical(
     fused: bool | None = None,
     kinds=None,
 ):
-    """Physically based path trace of one sample per ray, in plain tensor
-    ops: (radiance [..., 3], new rng).  With `nee=False` it is brute-force
-    BSDF sampling over the corrected BRDFs, the ground truth the NEE
-    estimator is held to.  `fused=True` (the JAX package's dual-query
-    Pallas loop) is not ported: ROADMAP Queue B #6."""
+    """Physically based path trace of one sample per ray: (radiance
+    [..., 3], new rng).  With `nee=False` it is brute-force BSDF sampling
+    over the corrected BRDFs, the ground truth the NEE estimator is held to.
+
+    `fused=True` runs the dual-query loop (`_trace_physical_fused`: the
+    dual-fold and nearest-sphere kernels on CUDA tensors, their plain
+    versions on the CPU; spheres and planes only); False the plain loop; None takes the dual query on
+    CUDA scenes of more than CHUNKED_THRESHOLD spheres and no boxes or
+    triangles (`_fused_eligible`)."""
+    if fused is None:
+        fused = nee and _fused_eligible(scene)
     if fused:
-        raise NotImplementedError(
-            "fused=True runs the dual-fold kernel, not ported yet "
-            "(ROADMAP Queue B #6, ops/pallas_intersect.py:_dual_fold_kernel)"
-        )
+        if not nee:
+            raise ValueError("the fused trace is the NEE estimator: it needs nee=True")
+        return _trace_physical_fused(scene, rays, rng_state, num_bounces, kinds)
     radiance, rng, _ = _trace(scene, rays, rng_state, num_bounces, nee, kinds)
     return radiance, rng
 
@@ -417,12 +554,14 @@ def render_sample_physical(
     row_offset: int = 0,
     full_height: int | None = None,
     kinds=None,
+    fused: bool | None = None,
 ) -> Accumulator:
-    """One progressive sample of the physical integrator, in plain tensor
-    ops, folded into the accumulator."""
+    """One progressive sample of the physical integrator, folded into the
+    accumulator (`fused` as in `trace_physical`)."""
     height, width = acc.color.shape[:2]
     rays = primary_rays(camera, width, height, row_offset, full_height)
-    radiance, rng_out = trace_physical(scene, rays, acc.rng, num_bounces, nee=nee, kinds=kinds)
+    radiance, rng_out = trace_physical(scene, rays, acc.rng, num_bounces, nee=nee, fused=fused,
+                                       kinds=kinds)
     return Accumulator(color=acc.color + radiance, rng=rng_out, iterations=acc.iterations + 1)
 
 
@@ -448,7 +587,8 @@ def render_batch_physical(
     (`trace_physical_nee`, `presort` as there).  Everything else runs
     `spp` steps of the plain loop, `render_sample_physical`, on the tensors'
     device — with `nee=False` on the card too, as the JAX package runs its
-    XLA loop there.  kernel="torch" forces the plain loop, kernel="cuda"
+    XLA loop there.  kernel="torch" forces the plain loop (without the dual
+    query: `fused=False`), kernel="cuda"
     the megakernel (it raises on CPU tensors, with `nee=False`, and on a
     scene it cannot take).  `kinds` and `light_idx` (the emitters' static
     index tuple, `ops/nee.py:scene_light_indices`) are read from the scene
@@ -481,6 +621,7 @@ def render_batch_physical(
         kinds = _present_kinds(scene)
     for _ in range(spp):
         acc = render_sample_physical(
-            scene, camera, acc, num_bounces, nee, row_offset, full_height, kinds=kinds
+            scene, camera, acc, num_bounces, nee, row_offset, full_height, kinds=kinds,
+            fused=False if kernel == "torch" else None,
         )
     return acc

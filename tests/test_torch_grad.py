@@ -326,12 +326,6 @@ def test_cuda_backend_on_cpu_raises():
         G.render_radiance(scene, camera, rng, W, H, backend="pallas")
 
 
-def test_physical_estimator_raises_naming_the_roadmap():
-    scene, camera, _, rng, _ = _torch_inputs(_small_scene())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A #8"):
-        G.render_radiance(scene, camera, rng, W, H, estimator="physical")
-
-
 def test_fused_diff_on_cpu_is_the_plain_trace_and_never_launches():
     scene, _, rays, rng, _ = _torch_inputs(_mixed_scene())
     MK.LAUNCHES = V.LAUNCHES = 0

@@ -257,14 +257,6 @@ def test_trace_physical_matches_jax(name, nee):
     assert_lane_parity(rng_ref, rng_to_numpy(rng_out), rad_ref, rad.numpy())
 
 
-def test_fused_trace_raises_naming_the_roadmap():
-    jscene, jcam = jax_nee_scene("cornell8")
-    with pytest.raises(NotImplementedError, match="Queue B #6"):
-        tnee.trace_physical(torch_scene(jscene), torch_rays(
-            {"origin": np.zeros((1, 1, 3), np.float32), "direction": np.ones((1, 1, 3), np.float32)}),
-            torch.zeros((1, 1, 4), dtype=torch.int32), fused=True)
-
-
 def test_matches_pallas_kernel_in_interpret_mode():
     """The plain version of the NEE kernel against the JAX package's Pallas
     NEE kernel itself, interpret mode, cornell8 at 64x8, 2 bounces, 2 spp."""

@@ -4,10 +4,15 @@ render, built with the JAX package and carried across as numpy arrays.
 Also writes the golden files that `chip_smoke.py` holds the CUDA kernels
 against on a machine without JAX:
 
-    JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py [nee]
+    JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py [nee | nee_grad]
 
-regenerates ``tests/data/torch_port_nee_golden.npz`` (seconds) and, without
-`nee`, ``tests/data/torch_port_golden.npz`` (minutes).  The NEE file holds,
+regenerates ``tests/data/torch_port_nee_golden.npz`` (seconds) with `nee`,
+``tests/data/torch_port_nee_grad_golden.npz`` (seconds) with `nee_grad`,
+and all three, ``tests/data/torch_port_golden.npz`` (minutes) too, without
+an argument.  The NEE gradient file holds, for cornell8, tri and glassy at
+32x16, 2 spp and 3 bounces, the inputs, a radiance cotangent `wts` and
+`jax.vjp` of the JAX package's XLA estimator for every `SceneParams` field
+and the rays (`jax_nee_grad_trace`).  The NEE file holds,
 for each NEE case, the JAX package's inputs (scene arrays, primary rays,
 initial rng, the emitters' index tuple) and the outputs of its XLA
 estimator, `render_batch_physical(fused=False)`'s loop of
@@ -327,6 +332,99 @@ def nee_golden_arrays(traces):
     return out
 
 
+NEE_GRAD_GOLDEN_PATH = os.path.join(
+    os.path.dirname(__file__), "data", "torch_port_nee_grad_golden.npz")
+NEE_GRAD_W, NEE_GRAD_H, NEE_GRAD_SPP, NEE_GRAD_BOUNCES = 32, 16, 2, 3
+# name -> seed of the rng and of the cotangent wts, for the NEE gradient
+# cases; the golden file holds the first three.  At these seeds every lane
+# of the port's plain forward agrees with the JAX package's
+# (`assert_lane_parity`'s radiance tolerance): a lane whose path parts on a
+# last-bit difference of sin/cos moves a sum of gradients more than the
+# 5e-3 they are held to.
+NEE_GRAD_CASES = {"cornell8": 46, "tri": 42, "glassy": 43, "zero_light": 44, "big200": 45}
+NEE_GRAD_GOLDEN_CASES = ("cornell8", "tri", "glassy")
+# The MSE objective's constant target (tests/test_pallas_nee_vjp.py).
+NEE_GRAD_TARGET = 0.2
+
+
+def jax_nee_grad_trace(case):
+    """A NEE gradient case: its inputs, the radiance image of the JAX
+    package's XLA estimator (`render_radiance(estimator="physical",
+    backend="xla")`: the mean of `spp` traces of `trace_physical(fused=
+    False)`, the rng threaded through) on the stored rays, and `jax.vjp`
+    of that image with respect to every `SceneParams` field and the rays,
+    pulled back from two cotangents: `wts` (the golden file's: the
+    gradient of sum(image * wts)) and that of the MSE against the constant
+    target NEE_GRAD_TARGET (`image_loss`'s objective, key prefix `mse_`).
+    One compile per case."""
+    import jax
+    import jax.numpy as jnp
+
+    from haskell_path_tracer_tpu.diff import grad as JG
+    from haskell_path_tracer_tpu.ops.pallas_nee import scene_light_indices
+    from haskell_path_tracer_tpu.render.nee import trace_physical
+
+    jscene, jcam = jax_nee_scene(case)
+    seed = NEE_GRAD_CASES[case]
+    rays = jax_primary_rays(jcam, NEE_GRAD_W, NEE_GRAD_H)
+    rng = J.make_accumulator(NEE_GRAD_W, NEE_GRAD_H, seed=seed).rng
+    shape = (NEE_GRAD_H, NEE_GRAD_W, 3)
+    wts = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+    def image(p, o, d):
+        s = JG.params_to_scene(p, jscene)
+
+        def body(rr, _):
+            radiance, rr = trace_physical(s, JaxRays(origin=o, direction=d), rr,
+                                          NEE_GRAD_BOUNCES, nee=True, fused=False)
+            return rr, radiance
+
+        _, radiances = jax.lax.scan(body, rng, None, length=NEE_GRAD_SPP)
+        return jnp.mean(radiances, axis=0)
+
+    @jax.jit
+    def image_and_pullbacks(p, o, d):
+        img, vjp = jax.vjp(image, p, o, d)
+        mse_cot = 2.0 * (img - NEE_GRAD_TARGET) / img.size
+        return img, vjp(wts), vjp(mse_cot)
+
+    img, *pullbacks = image_and_pullbacks(
+        JG.scene_to_params(jscene), rays.origin, rays.direction)
+    img = np.asarray(img, np.float32)
+    out = {
+        "scene": C.scene_to_numpy(jscene),
+        "origin": np.asarray(rays.origin, np.float32),
+        "direction": np.asarray(rays.direction, np.float32),
+        "rng_in": np.asarray(rng),
+        "light_idx": np.asarray(scene_light_indices(jscene), np.int32),
+        "wts": wts,
+        "image": img,
+        "mse_loss": np.float32(np.mean((img - NEE_GRAD_TARGET) ** 2)),
+    }
+    for prefix, (g_params, g_o, g_d) in zip(("", "mse_"), pullbacks):
+        for field, g in zip(JG.SceneParams._fields, g_params):
+            out[f"{prefix}d_{field}"] = np.asarray(g, np.float32)
+        out[f"{prefix}d_origin"] = np.asarray(g_o, np.float32)
+        out[f"{prefix}d_direction"] = np.asarray(g_d, np.float32)
+    return out
+
+
+def nee_grad_golden_arrays(traces):
+    """Flatten {case: jax_nee_grad_trace(case)} for NEE_GRAD_GOLDEN_CASES into
+    the NEE gradient golden file's arrays: inputs, `wts` and the gradients
+    of sum(image * wts)."""
+    out = {}
+    for case in NEE_GRAD_GOLDEN_CASES:
+        t = traces[case]
+        for k, v in t["scene"].items():
+            out[f"{case}__scene__{k}"] = v
+        for k, v in t.items():
+            if k in ("origin", "direction", "rng_in", "light_idx", "wts") or k.startswith("d_"):
+                out[f"{case}__{k}"] = v
+        out[f"{case}__config"] = np.array([NEE_GRAD_SPP, NEE_GRAD_BOUNCES], np.int32)
+    return out
+
+
 def lane_agreement(rng_a, rng_b, color_a, color_b):
     """(share of lanes whose rng words all agree, share of color values
     isclose at rtol = atol = 1e-4, the same share among the values that
@@ -343,8 +441,13 @@ def lane_agreement(rng_a, rng_b, color_a, color_b):
 if __name__ == "__main__":
     import sys
 
+    nee_grad = {NEE_GRAD_GOLDEN_PATH: lambda: nee_grad_golden_arrays(
+        {c: jax_nee_grad_trace(c) for c in NEE_GRAD_GOLDEN_CASES})}
     files = {NEE_GOLDEN_PATH: lambda: nee_golden_arrays({c: jax_nee_trace(c) for c in NEE_CASES})}
-    if sys.argv[1:] != ["nee"]:
+    if sys.argv[1:] == ["nee_grad"]:
+        files = nee_grad
+    elif sys.argv[1:] != ["nee"]:
+        files.update(nee_grad)
         files[GOLDEN_PATH] = lambda: golden_arrays(
             {c: jax_trace(c) for c in GOLDEN_CASES},
             {c: jax_grad_trace(c) for c in GRAD_CASES},
