@@ -2,16 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA libraries from ``haskell_path_tracer_torch/csrc``
-(one nvcc each, started together) and runs twenty phases, each printing
-one line; any failure raises and the script exits non-zero without
-printing a result:
+Builds the port's six CUDA libraries from ``haskell_path_tracer_torch/csrc``
+(one nvcc each, started together) and runs twenty-four phases, each
+printing one line; any failure raises and the script exits non-zero
+without printing a result:
 
   1. device: name, power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc of csrc/megakernel.cu, csrc/megakernel_vjp.cu,
      csrc/nee_megakernel.cu (the NEE kernel and the probe),
-     csrc/nee_megakernel_vjp.cu (the NEE backward) and csrc/sphere_fold.cu
-     (the nearest-sphere and dual folds), timed;
+     csrc/nee_megakernel_vjp.cu (the NEE backward), csrc/sphere_fold.cu
+     (the nearest-sphere and dual folds) and csrc/split.cu (deterministic
+     splitting), timed;
   3. forward kernel against its plain PyTorch version on the card, at
      800x600 / 15 bounces / 1 spp, 512x512 / 8 bounces / 4 spp and a
      ragged 333x97, on the reference, mixed-kinds and glass scenes and with
@@ -97,7 +98,30 @@ printing a result:
      frames, the plain over row tiles) and on a full-width strip of
      1920x1088 / 8 / 4 (the kernel launched on the whole image with the
      cotangent zero outside the strip), and timed with it at 512x512; the
-     two folds at 1920x1088 x 1000 spheres, with their bounds.
+     two folds at 1920x1088 x 1000 spheres, with their bounds;
+ 21. the splitting kernel against its plain version (`trace_split_reference`)
+     on the card: config 3's glass scene at 512x512 / 8 b / 4 spp, the
+     reference scene at 800x600 / 15 / 1, a ragged 333x97, stack depths 1,
+     2, 4 and 14 at 15 bounces, the mixed-kinds scene, 1000 and 4000
+     spheres (tables in shared memory above 48 KB, and in device memory);
+     on the reference scene against the forward kernel (rng equal, radiance
+     within 1e-6); the forward and backward kernels against their plain
+     versions on 1000, 2000 and 4000 spheres;
+ 22. the splitting kernel against the JAX package's Pallas kernel
+     (tests/data/torch_port_split_golden.npz);
+ 23. the wavefront serving path, counted from 0: the CLI with `--variant
+     wavefront --split` at 800x600 / 15 b / 64 spp on the reference scene
+     and on config 3's glass scene from a scene file (one split launch per
+     step), the glass image against the inline CLI's (mean within 6%,
+     pixel correlation > 0.97); `--variant streams --stats` (the stats
+     line, its histogram summing to the pixels); `render_batch_wavefront`
+     on 1000 spheres (one nearest-fold launch per bounce, bit-equal to the
+     plain chunked fold);
+ 24. splitting times: the kernel at suite config 3 (512x512 / 64 spp / 8 b,
+     queue_factor 2; rays/s as suite.py counts them, W H spp b, and the
+     processed segments), at 800x600 / 15 / 1 on the glass and reference
+     scenes with `Renderer.step` and the plain version, with bounds; the
+     forward kernel at 800x600 / 15 / 1 on 1000 spheres.
 
 Lane tolerance of the forward (tests/test_pallas.py): >= 99.5% of lanes
 with equal rng words, >= 99% of color values isclose at rtol = atol =
@@ -118,17 +142,20 @@ ray cotangents per lane, off on at most 0.5% of lanes.  The dual-query
 route: rtol 5e-4, atol 5e-6 (tests/test_grad.py).
 
 The line before the last is a JSON object of the kernels with their
-launches on the main paths (phases 5, 9, 14, 19, and 18's dual-query
+launches on the main paths (phases 5, 9, 14, 19, 23, and 18's dual-query
 route), their times, their plain versions' and their bounds at each path's
 shape (the forward and the NEE kernel at 800x600 / 15 bounces / 1 spp, the
 backward at 512x512 / 64 spp / 8 bounces, the probe at 800x600 on the
 config-4 scene, the NEE backward at 512x512 / 1 / 4 on config 7's scene,
-the two folds at 1920x1088 on it); the last line is
+the two folds at 1920x1088 on it, the splitting kernel at 800x600 / 15 / 1
+on config 3's glass scene); the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -155,12 +182,16 @@ from haskell_path_tracer_torch.ops import megakernel_vjp as V  # noqa: E402
 from haskell_path_tracer_torch.ops import nee as NE  # noqa: E402
 from haskell_path_tracer_torch.ops import nee_vjp as NV  # noqa: E402
 from haskell_path_tracer_torch.ops import sphere_fold as SF  # noqa: E402
+from haskell_path_tracer_torch.ops import split as SP  # noqa: E402
+from haskell_path_tracer_torch.render import integrator as RI  # noqa: E402
 from haskell_path_tracer_torch.render import nee as RN  # noqa: E402
+from haskell_path_tracer_torch.render import wavefront as WF  # noqa: E402
 from haskell_path_tracer_torch.ops.intersect import (  # noqa: E402
     CHUNKED_THRESHOLD,
     EPSILON,
     INFINITE,
     nearest_t_prim,
+    plain_sphere_fold,
     sphere_nearest_chunked,
 )
 from haskell_path_tracer_torch.models import scenes as SC  # noqa: E402
@@ -672,7 +703,8 @@ def nee_vs_plain(dev) -> list:
     for label, (scene, cam, w, h, bounces, spp) in nee_cases(dev).items():
         rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), len(results) + 100, dev)
         got = NE.trace_physical_nee(scene, rays, rng, bounces, spp, presort=False, telemetry=True)
-        want = NE.trace_physical_nee_reference(scene, rays, rng, bounces, spp, telemetry=True)
+        with plain_sphere_fold():
+            want = NE.trace_physical_nee_reference(scene, rays, rng, bounces, spp, telemetry=True)
         torch.cuda.synchronize()
         case = lane_parity(f"{label} {w}x{h} b{bounces} spp{spp}", got, want)
         if not torch.equal(got[2], want[2]):
@@ -719,8 +751,9 @@ def probe_check(dev) -> dict:
     rays, rng = primary_rays(cam, 1920, 1088), gen_seeds((1088, 1920), 7, dev)
     tables = NE.nee_scene_tables(scene)
     t0, prim0 = NE.launch_probe(tables, rays)
-    tiles = [nearest_t_prim(rays.origin[r:r + 136], rays.direction[r:r + 136], scene, 0.0)
-             for r in range(0, 1088, 136)]
+    with plain_sphere_fold():
+        tiles = [nearest_t_prim(rays.origin[r:r + 136], rays.direction[r:r + 136], scene, 0.0)
+                 for r in range(0, 1088, 136)]
     t_ref, prim_ref = torch.cat([t for t, _ in tiles]), torch.cat([p for _, p in tiles]).to(torch.int32)
     same = prim0 == prim_ref
     share = same.double().mean().item()
@@ -847,7 +880,8 @@ def nee_times(dev, smi) -> tuple:
     rays4 = primary_rays(cam4, 800, 600)
     tables4 = NE.nee_scene_tables(scene4)
     probe_main = cuda_times(lambda: NE.launch_probe(tables4, rays4), 50)
-    probe_plain = cuda_times(lambda: nearest_t_prim(rays4.origin, rays4.direction, scene4, 0.0), 3)
+    with plain_sphere_fold():
+        probe_plain = cuda_times(lambda: nearest_t_prim(rays4.origin, rays4.direction, scene4, 0.0), 3)
     out["probe_800x600_big1000"] = {"kernel": probe_main, "plain": probe_plain, **probe_bound(tables4, rays4)}
     entries = {
         "nee_megakernel": {"ms": kernel["median_ms"], "plain_ms": plain["median_ms"],
@@ -959,8 +993,9 @@ def nee_backward_vs_plain(dev) -> dict:
                                       estimator="physical", backend="cuda", light_idx=li)
         if NV.LAUNCHES != before + 1:
             raise AssertionError(f"{label}: loss_and_grad(cuda) did not launch the backward kernel once")
-        loss_t, g_t = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
-                                      estimator="physical", backend="torch")
+        with plain_sphere_fold():
+            loss_t, g_t = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
+                                          estimator="physical", backend="torch")
         rel = abs(loss_c.item() - loss_t.item()) / abs(loss_t.item())
         if rel > LOSS_RTOL:
             raise AssertionError(f"{label}: loss {loss_c.item()} vs {loss_t.item()}")
@@ -971,7 +1006,8 @@ def nee_backward_vs_plain(dev) -> dict:
         wts = torch.as_tensor(np.random.default_rng(len(cases)).normal(size=(h, w, 3)).astype(np.float32),
                               device=dev)
         tables = NE.nee_scene_tables(scene, li)
-        want, w_o, w_d = NV.backward_reference(scene, rays, rng, wts, bounces, spp, kinds)
+        with plain_sphere_fold():
+            want, w_o, w_d = NV.backward_reference(scene, rays, rng, wts, bounces, spp, kinds)
         t0, prim0 = NE.launch_probe(tables, rays)
         order = NE._presort_order(t0)
         for frame, extra in (("raster", {}), ("sorted", {"order": order, "primary": (t0, prim0)})):
@@ -1112,7 +1148,8 @@ def fold_checks(dev) -> dict:
     scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
     rays, rng = primary_rays(cam, 256, 144), gen_seeds((144, 256), 18, dev)
     fused = RN.trace_physical(scene, rays, rng, 4, fused=True)
-    plain = RN.trace_physical(scene, rays, rng, 4, fused=False)
+    with plain_sphere_fold():
+        plain = RN.trace_physical(scene, rays, rng, 4, fused=False)
     out["fused_trace_vs_plain_256x144_b4"] = lane_parity("fused trace", fused, plain)
 
     routes = []
@@ -1133,8 +1170,9 @@ def fold_checks(dev) -> dict:
         if launches != {"nearest_fold": primary, "dual_fold": spp * bounces, "nee_megakernel_vjp": 0,
                         "nee_megakernel": 0, "primary_probe": 0}:
             raise AssertionError(f"{label}: dual-query route launches {launches}")
-        loss_t, g_t = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
-                                      estimator="physical", backend="torch")
+        with plain_sphere_fold():
+            loss_t, g_t = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
+                                          estimator="physical", backend="torch")
         if abs(loss_c.item() - loss_t.item()) > LOSS_RTOL * abs(loss_t.item()):
             raise AssertionError(f"{label}: dual-query loss {loss_c.item()} vs {loss_t.item()}")
         for f in G.SceneParams._fields:
@@ -1287,9 +1325,10 @@ def physical_training_times(dev, smi) -> tuple:
     def plain_tiles(rays, rng, wts, spp, rows):
         leaf, d_o, d_d = None, [], []
         for r in range(0, rays.origin.shape[0], rows):
-            g, g_o, g_d = NV.backward_reference(
-                scene, Rays(origin=rays.origin[r:r + rows], direction=rays.direction[r:r + rows]),
-                rng[r:r + rows], wts[r:r + rows], 4, spp, kinds)
+            with plain_sphere_fold():
+                g, g_o, g_d = NV.backward_reference(
+                    scene, Rays(origin=rays.origin[r:r + rows], direction=rays.direction[r:r + rows]),
+                    rng[r:r + rows], wts[r:r + rows], 4, spp, kinds)
             leaf = g if leaf is None else {f: leaf[f] + g[f] for f in g}
             d_o.append(g_o)
             d_d.append(g_d)
@@ -1382,6 +1421,276 @@ def physical_training_times(dev, smi) -> tuple:
     return out, entries
 
 
+# The wavefront integrator and deterministic splitting (phases 21-24).
+SPLIT_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_split_golden.npz")
+SPLIT_RNG_MIN = SPLIT_CLOSE_MIN = 0.99  # tests/test_pallas_split.py:59-68
+ORIGIN_POSE = ([0.0] * 3, [0.0] * 3)  # suite config 3's camera
+# benchmarks/suite.py config 3: width, height, spp, bounces, queue_factor.
+CONFIG3 = (512, 512, 64, 8, 2.0)
+# The splitting kernel's fp32 operations per processed segment, counted
+# from csrc/bounce.cuh and csrc/split.cuh as above: the fold, the bounce
+# and the winner's normal as the forward's; then matte (70) or glossy (84)
+# as there, and at glass, in place of a sample, the Fresnel split
+# (`dielectric_split`, 58) with the child's weight 1 - F, throughput and
+# quadrance (12).  The child's origin is not counted (only pushed children
+# need it).
+SPLIT_SAMPLE_OPS = (70, 84, 70)
+# The CLI's glass image against the inline CLI's (tests/test_split.py:124-153).
+SPLIT_MEAN_RTOL, SPLIT_CORR_MIN = 0.06, 0.97
+
+
+def split_ops(tables, per_row) -> int:
+    """fp32 operations the splitting kernel needs for the processed
+    segments `per_row` (by winning row, `trace_split_reference`'s
+    telemetry)."""
+    geom, mat, counts = tables
+    kinds = [k for k, n in enumerate(counts) for _ in range(n)]
+    brdfs = [int(b) for b in mat[:, 5].tolist()]
+    ops = sum(per_row) * (sum(n * f for n, f in zip(counts, FOLD_OPS)) + BOUNCE_OPS)
+    for n, kind, brdf in zip(per_row, kinds, brdfs):
+        ops += n * (NORMAL_OPS[kind] + SPLIT_SAMPLE_OPS[brdf])
+    return ops
+
+
+def split_bound(tables, per_row, pixels) -> dict:
+    ops = split_ops(tables, per_row)
+    return {**bound(FWD_BYTES_PER_PIXEL * pixels + table_bytes(tables), ops), "ops": ops,
+            "segments": sum(per_row)}
+
+
+def strict_check(label, got, want) -> dict:
+    """`check`'s lane contract, and whether every rng word and radiance
+    value is equal."""
+    rec = check(label, got, want)
+    return {**rec, "rng_all_equal": bool(torch.equal(got[1], want[1])),
+            "bit_equal": bool(torch.equal(got[0], want[0]))}
+
+
+def split_vs_plain(dev, golden) -> dict:
+    """Phase 21: the splitting kernel against `trace_split_reference` on the
+    card: config 3's glass scene at 512x512 / 8 b / 4 spp, the reference
+    scene at 800x600 / 15 / 1, a ragged 333x97, stack depths 1, 2, 4 and 14
+    at 15 bounces, the mixed-kinds scene, 1000 spheres (64 KB of tables,
+    in shared memory above the 48 KB default) and 4000 (256 KB, read from
+    device memory); the split-free witness against the forward kernel; and
+    the forward and backward kernels against their plain versions on the
+    large scenes."""
+    origin, ref, cam4 = Camera.create(*ORIGIN_POSE, 90.0, dev), world.initial_camera(dev), \
+        Camera.create(*CAM4, 90.0, dev)
+    glass = SC.suite_glass_scene(dev)
+    mixed = C.scene_from_numpy({k[len("mixed__scene__"):]: v for k, v in golden.items()
+                                if k.startswith("mixed__scene__")}, dev)
+    cases = [("glass", glass, origin, 512, 512, 8, 4, 2),
+             ("reference", world.main_scene(dev), ref, 800, 600, 15, 1, 2),
+             ("glass_ragged", glass, origin, 333, 97, 6, 2, 2),
+             *((f"glass_stack{k}", glass, origin, 160, 120, 15, 1, k) for k in (1, 2, 4, 14)),
+             ("mixed", mixed, origin, 256, 128, 5, 2, 2),
+             ("big1000", SC.big_scene(dev, 1000), cam4, 160, 90, 4, 1, 2),
+             ("big4000", SC.big_scene(dev, 4000), cam4, 64, 32, 3, 1, 2)]
+    results = []
+    for label, scene, cam, w, h, b, spp, sd in cases:
+        rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 300 + len(results), dev)
+        got = SP.trace_split_fused(scene, rays, rng, b, spp, sd)
+        want = SP.trace_split_reference(scene, rays, rng, b, spp, sd)
+        torch.cuda.synchronize()
+        rec = strict_check(f"{label} {w}x{h} b{b} spp{spp} stack{sd}", got, want)
+        results.append({**rec, "segments": live_segments(rng, got[1]), "mean": want[0].mean().item()})
+    out = {"max_abs_err": max(r["max_abs_err"] for r in results), "cases": results}
+
+    # Witness: without glass the splitting kernel is the forward kernel.
+    scene = world.main_scene(dev)
+    rays, rng = primary_rays(ref, 800, 600), gen_seeds((600, 800), 320, dev)
+    split = SP.trace_split_fused(scene, rays, rng, 15, 1, 2)
+    inline = MK.trace_inline_fused(scene, rays, rng, 15, 1, has_dielectric=False)
+    torch.cuda.synchronize()
+    diff = (split[0] - inline[0]).abs().max().item()
+    if not torch.equal(split[1], inline[1]) or not torch.allclose(split[0], inline[0], rtol=1e-6,
+                                                                   atol=1e-6):
+        raise AssertionError(f"split-free witness: rng or radiance (max {diff}) off the forward kernel")
+    out["split_free_vs_forward_kernel_800x600_b15"] = {"rng_all_equal": True, "max_abs_err": diff}
+
+    # Repair of the large tables: the forward and backward kernels on 1000,
+    # 2000 and 4000 spheres (tables in shared memory; the backward's
+    # cotangent tables in device memory from 2000; everything in device
+    # memory at 4000).
+    large = []
+    for n, w, h in ((1000, 160, 90), (2000, 32, 16), (4000, 64, 32)):
+        scene = SC.big_scene(dev, n)
+        rays, rng = primary_rays(cam4, w, h), gen_seeds((h, w), n, dev)
+        got = MK.trace_inline_fused(scene, rays, rng, 4, 1)
+        want = MK.trace_inline_fused_reference(scene, rays, rng, 4, 1)
+        torch.cuda.synchronize()
+        fwd = strict_check(f"forward big{n} {w}x{h} b4", got, want)
+        tables = (*MK.scene_tables(scene), MK.primitive_counts(scene))
+        bwd = function_vs_plain(f"backward big{n} 16x16 b2", tables, False,
+                                primary_rays(cam4, 16, 16), gen_seeds((16, 16), n + 1, dev), 2, 1, n, 16)
+        large.append({"spheres": n, "table_bytes": table_bytes(tables), "forward": fwd, "backward": bwd})
+    out["large_tables"] = large
+    out["forward_max_abs_err"] = max(r["forward"]["max_abs_err"] for r in large)
+    out["backward_max_abs_err"] = max(r["backward"]["max_abs_err"] for r in large)
+    return out
+
+
+def split_vs_golden(dev) -> list:
+    """Phase 22: the splitting kernel on the golden cases' inputs against the
+    JAX package's Pallas kernel (interpret mode), under
+    tests/test_pallas_split.py's contract."""
+    results = []
+    with np.load(SPLIT_GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    for case in sorted({k.split("__")[0] for k in golden}):
+        g = {k[len(case) + 2:]: v for k, v in golden.items() if k.startswith(f"{case}__")}
+        scene = C.scene_from_numpy({k[len("scene__"):]: v for k, v in g.items()
+                                    if k.startswith("scene__")}, dev)
+        spp, bounces, sd = g["config"].tolist()
+        rays = Rays(origin=torch.as_tensor(g["origin"], device=dev),
+                    direction=torch.as_tensor(g["direction"], device=dev))
+        got = SP.trace_split_fused(scene, rays, C.rng_from_numpy(g["rng_in"], dev), bounces, spp, sd)
+        want = (torch.as_tensor(g["radiance"], device=dev), C.rng_from_numpy(g["rng_out"], dev))
+        torch.cuda.synchronize()
+        rng_match, close, lit_close, err = agreement(got[1], want[1], got[0], want[0])
+        if rng_match < SPLIT_RNG_MIN or close < SPLIT_CLOSE_MIN:
+            raise AssertionError(f"golden {case}: rng {rng_match}, close {close}")
+        results.append({"case": f"golden {case} 128x8 b{bounces} spp{spp} stack{sd}", "rng": rng_match,
+                        "close": close, "lit_close": lit_close, "max_abs_err": err})
+    return results
+
+
+def wavefront_main_path(dev) -> dict:
+    """Phase 23, counted from 0: the CLI with `--variant wavefront --split`
+    at 800x600 / 15 b / 64 spp on the reference scene and on config 3's
+    glass scene from a scene file (one split launch per step), the glass
+    image against the inline CLI's; `--variant streams --stats` on the
+    reference scene; `render_batch_wavefront` on 1000 spheres (one
+    nearest-fold launch per bounce, equal to the plain chunked fold's)."""
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        glass_json = os.path.join(tmp, "glass.json")
+        save_scene(glass_json, SC.suite_glass_scene("cpu"), Camera.create(*ORIGIN_POSE, 90.0, "cpu"))
+
+        def cli(name, args, spp=64):
+            png, ckpt = os.path.join(tmp, f"{name}.png"), os.path.join(tmp, f"{name}.npz")
+            SP.LAUNCHES["split_kernel"] = MK.LAUNCHES = 0
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = cli_main(["--device", "cuda", "--width", "800", "--height", "600", "--bounces", "15",
+                               "--spp", str(spp), "--seed", "0", "--quiet", "--checkpoint", ckpt,
+                               "-o", png, *args])
+            wall = time.perf_counter() - t0
+            acc, _ = load_accumulator(ckpt, dev)
+            img = acc.image.cpu().numpy()
+            rec = {"rc": rc, "iterations": acc.iterations, "wall_s": wall, "mean": float(img.mean()),
+                   "lit_share": float((img.sum(-1) > 1e-3).mean()),
+                   "launches": {"split_kernel": SP.LAUNCHES["split_kernel"], "megakernel": MK.LAUNCHES}}
+            if rc != 0 or acc.iterations != spp or not np.isfinite(img).all() or rec["lit_share"] == 0.0:
+                raise AssertionError(f"{name}: CLI returned {rc} after {acc.iterations} samples, or the "
+                                     "image is not finite or black")
+            return rec, img, err.getvalue()
+
+        split_args = ["--variant", "wavefront", "--split"]
+        ref, _, _ = cli("split_reference", split_args)
+        glass, img_split, _ = cli("split_glass", split_args + ["--scene", glass_json])
+        inline, img_inline, _ = cli("inline_glass", ["--scene", glass_json])
+        stats_rec, _, err = cli("streams_stats", ["--variant", "streams", "--stats"], spp=8)
+    for name, rec in (("reference", ref), ("glass", glass)):
+        if rec["launches"] != {"split_kernel": 64, "megakernel": 0}:
+            raise AssertionError(f"split CLI on the {name} scene launched {rec['launches']}, not one "
+                                 "split launch per step")
+    mean_rel = float(abs(img_split.mean() - img_inline.mean()) / abs(img_inline.mean()))
+    corr = float(np.corrcoef(img_split.reshape(-1), img_inline.reshape(-1))[0, 1])
+    if mean_rel >= SPLIT_MEAN_RTOL or corr <= SPLIT_CORR_MIN:
+        raise AssertionError(f"split glass image vs inline: mean off by {mean_rel}, correlation {corr}")
+    lines = [json.loads(l) for l in err.splitlines() if l.startswith("{")]
+    stats = [r for r in lines if r.get("event") == "wavefront_stats"]
+    if len(stats) != 1 or sum(stats[0]["depth_histogram"]) != 800 * 600 \
+            or stats[0]["occupancy"][0] != 800 * 600 or stats[0]["capacity"] != 800 * 600:
+        raise AssertionError(f"streams --stats: {stats}")
+    out["split_reference_800x600_b15_spp64"] = ref
+    out["split_glass_800x600_b15_spp64"] = {**glass, "vs_inline_cli": {
+        "inline": inline, "mean_rel_err": mean_rel, "pixel_correlation": corr}}
+    out["streams_stats_800x600_b15_spp8"] = {**stats_rec, "stats": {
+        k: v for k, v in stats[0].items() if k not in ("event", "t")}}
+
+    # The wavefront's nearest hit on 1000 spheres: the nearest-sphere kernel
+    # once per bounce, bit for bit the plain chunked fold's result.
+    scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+    acc = RI.make_accumulator(160, 90, 23, dev)
+    SF.LAUNCHES["nearest_fold"] = 0
+    got = WF.render_batch_wavefront(scene, cam, acc, 2, num_bounces=4)
+    torch.cuda.synchronize()
+    launches = SF.LAUNCHES["nearest_fold"]
+    with plain_sphere_fold():
+        want = WF.render_batch_wavefront(scene, cam, acc, 2, num_bounces=4)
+    if launches != 2 * 4 or SF.LAUNCHES["nearest_fold"] != launches:
+        raise AssertionError(f"wavefront on 1000 spheres: {launches} nearest-fold launches, not 8")
+    if not (torch.equal(got.rng, want.rng) and torch.equal(got.color, want.color)):
+        raise AssertionError("wavefront on 1000 spheres: the kernel's fold changed a pixel")
+    out["wavefront_big1000_160x90_b4_spp2"] = {"nearest_fold_launches": launches, "bit_equal": True,
+                                               "mean": want.color.mean().item()}
+    out["launches"] = {"split_kernel": ref["launches"]["split_kernel"] + glass["launches"]["split_kernel"],
+                       "nearest_fold": launches}
+    return out
+
+
+def split_times(dev, smi) -> tuple:
+    """Phase 24, on CUDA events: the splitting kernel at suite config 3
+    (rays/s as suite.py:278 counts them, W H spp b) with its processed
+    segments, and at the CLI shape (800x600 / 15 / 1) on the glass and the
+    reference scenes, with `Renderer.step` and the plain version there,
+    each with its bound; the forward kernel at 800x600 / 15 / 1 on 1000
+    spheres through the large-table path.  Returns the record and the
+    kernels-line entry."""
+    out = {"nvidia_smi": smi}
+    glass, origin = SC.suite_glass_scene(dev), Camera.create(*ORIGIN_POSE, 90.0, dev)
+    tables = (*MK.scene_tables(glass), MK.primitive_counts(glass))
+    w, h, spp, b, qf = CONFIG3
+    sd = SP.clamp_stack_depth(b, round(qf))
+    rays, rng = primary_rays(origin, w, h), gen_seeds((h, w), 0, dev)
+    kernel = cuda_times(lambda: SP.launch_split(*tables, rays, rng, b, spp, sd), 10)
+    segments = live_segments(rng, SP.launch_split(*tables, rays, rng, b, spp, sd)[1])
+    t0 = time.perf_counter()
+    per_row = SP.trace_split_reference(glass, rays, rng, b, spp, sd, telemetry=True)[2].tolist()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    nominal = w * h * spp * b
+    out["config3_glass_512x512_spp64_b8"] = {
+        "kernel": kernel, "rays_per_s_suite_count": nominal / (kernel["median_ms"] / 1e3),
+        "kernel_segments": segments, "segment_share_of_nominal": segments / nominal,
+        "segment_share_of_capacity": segments / (w * h * spp * b * (1 + sd)),
+        "plain": {"n": 1, "wall_s": plain_s}, **split_bound(tables, per_row, w * h)}
+
+    entries = {}
+    for label, scene, cam in (("glass", glass, origin),
+                              ("reference", world.main_scene(dev), world.initial_camera(dev))):
+        tab = (*MK.scene_tables(scene), MK.primitive_counts(scene))
+        rays, rng = primary_rays(cam, 800, 600), gen_seeds((600, 800), 0, dev)
+        kernel = cuda_times(lambda: SP.launch_split(*tab, rays, rng, 15, 1, 2), 50)
+        plain = cuda_times(lambda: SP.trace_split_reference(scene, rays, rng, 15, 1, 2), 3)
+        per_row = SP.trace_split_reference(scene, rays, rng, 15, 1, 2, telemetry=True)[2].tolist()
+        renderer = Renderer(RenderConfig(algorithm="wavefront", split=True, queue_factor=2.0, device="cuda"))
+        acc = renderer.init_accumulator(seed=0)
+        step = cuda_times(lambda: renderer.step(scene, cam, acc, spp=1), 50)
+        rec = {"kernel": kernel, "plain": plain, "renderer_step": step, "segments": live_segments(
+            rng, SP.launch_split(*tab, rays, rng, 15, 1, 2)[1]), **split_bound(tab, per_row, 800 * 600)}
+        out[f"cli_shape_{label}_800x600_b15_spp1"] = rec
+        if label == "glass":
+            entries["split_kernel"] = {"ms": kernel["median_ms"], "plain_ms": plain["median_ms"],
+                                       "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"]}
+
+    # The forward kernel on 1000 spheres (64 KB of tables, shared memory
+    # opted in above 48 KB) at the serving shape.
+    scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+    tab = (*MK.scene_tables(scene), MK.primitive_counts(scene))
+    rays, rng = primary_rays(cam, 800, 600), gen_seeds((600, 800), 0, dev)
+    kernel = cuda_times(lambda: MK.launch_kernel(*tab, rays, rng, 15, 1, False, 3, False), 20)
+    mix = live_bounce_mix(tab, rays, rng, 15, 1, False)
+    out["forward_big1000_800x600_b15_spp1"] = {
+        "kernel": kernel, "live_share": sum(mix) / (800 * 600 * 15),
+        **bound(FWD_BYTES_PER_PIXEL * 800 * 600 + table_bytes(tab), bounce_ops(tab, mix, False, False))}
+    return out, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -1399,7 +1708,7 @@ def main() -> int:
     # 2. Build, from the sources in this checkout: one nvcc per source,
     # started together.
     builds = {"megakernel": MK, "megakernel_vjp": V, "nee_megakernel": NE,
-              "nee_megakernel_vjp": NV, "sphere_fold": SF}
+              "nee_megakernel_vjp": NV, "sphere_fold": SF, "split": SP}
     for mod in builds.values():
         if os.path.exists(mod.library_path()):
             os.unlink(mod.library_path())
@@ -1584,6 +1893,15 @@ def main() -> int:
     grad_record, grad_entries = physical_training_times(dev, smi)
     phase("physical_training_times", **grad_record)
 
+    # 21-24: the wavefront integrator and deterministic splitting.
+    split_rec = split_vs_plain(dev, golden)
+    phase("split_vs_plain", **split_rec)
+    phase("split_vs_jax_golden", cases=split_vs_golden(dev))
+    wavefront = wavefront_main_path(dev)
+    phase("wavefront_main_path", **wavefront)
+    split_record, split_entries = split_times(dev, smi)
+    phase("split_times", **split_record)
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -1591,7 +1909,7 @@ def main() -> int:
         "source": "haskell_path_tracer_torch/csrc/megakernel.cu",
         "replaces": "haskell_path_tracer_tpu/ops/pallas_megakernel.py:558",
         "launches": serving["megakernel"] + training["launches"]["megakernel"],
-        "max_abs_err": max_abs_err,
+        "max_abs_err": max(max_abs_err, split_rec["forward_max_abs_err"]),
         "ms": one["kernel"]["median_ms"],
         "plain_ms": one["plain"]["median_ms"],
         **fwd_bound,
@@ -1602,7 +1920,7 @@ def main() -> int:
         "source": "haskell_path_tracer_torch/csrc/megakernel_vjp.cu",
         "replaces": "haskell_path_tracer_tpu/ops/pallas_megakernel_vjp.py:63",
         "launches": serving["megakernel_vjp"] + training["launches"]["megakernel_vjp"],
-        "max_abs_err": bwd_max_abs_err,
+        "max_abs_err": max(bwd_max_abs_err, split_rec["backward_max_abs_err"]),
         "ms": main_shape["kernel"]["median_ms"],
         "plain_ms": main_shape["case"]["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -1649,9 +1967,18 @@ def main() -> int:
         "route": "cuda",
         "source": "haskell_path_tracer_torch/csrc/sphere_fold.cu",
         "replaces": "haskell_path_tracer_tpu/ops/pallas_intersect.py:35",
-        "launches": folds["launches"]["nearest_fold"],
+        "launches": folds["launches"]["nearest_fold"] + wavefront["launches"]["nearest_fold"],
         "max_abs_err": folds["nearest_max_abs_err"],
         **grad_entries["nearest_fold"],
+        "library_ms": None,
+    }, {
+        "name": "split_kernel",
+        "route": "cuda",
+        "source": "haskell_path_tracer_torch/csrc/split.cu",
+        "replaces": "haskell_path_tracer_tpu/ops/pallas_split.py:81",
+        "launches": wavefront["launches"]["split_kernel"],
+        "max_abs_err": split_rec["max_abs_err"],
+        **split_entries["split_kernel"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

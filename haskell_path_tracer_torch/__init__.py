@@ -16,7 +16,12 @@ on a CUDA device as one launch of the NEE megakernel in
 estimator="physical", light_idx=...)`) through that kernel and the NEE
 backward megakernel in ``csrc/nee_megakernel_vjp.cu``, or, without an
 emitter tuple, through the dual-fold kernel in ``csrc/sphere_fold.cu``.
-This package imports neither JAX nor the JAX package.
+The wavefront integrator (`render_batch_wavefront`,
+`Renderer(algorithm="wavefront")`) runs the same bounce over a queue of
+lanes; with deterministic dielectric splitting (`render_batch_split_auto`,
+`split=True`) a CUDA device runs it as one launch of the splitting kernel
+in ``csrc/split.cu``.  This package imports neither JAX nor the JAX
+package.
 """
 
 from .models.objects import (
@@ -48,6 +53,15 @@ from .render.integrator import (
     render_batch_inline,
     render_sample_inline,
     trace_inline,
+)
+from .render.wavefront import (
+    WavefrontStats,
+    depth_histogram,
+    render_batch_split_auto,
+    render_batch_wavefront,
+    render_batch_wavefront_split,
+    render_sample_wavefront,
+    render_sample_wavefront_split,
 )
 from .render.nee import render_batch_physical, render_sample_physical, trace_physical
 from .ops.nee import primary_probe, scene_light_indices

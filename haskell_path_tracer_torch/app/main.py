@@ -3,14 +3,19 @@
 Counterpart of ``haskell_path_tracer_tpu/app/main.py``: the reference's
 progressive batching schedule and periodic reseeding, an image file in
 place of the window, and checkpoint/resume.  `--variant inline` (the
-default) renders the reference's parity estimator, `--variant physical`
-the corrected BRDFs with next-event estimation (`--no-nee` for BSDF
-sampling alone); both log the same per-phase lines.
+default) renders the reference's parity estimator, `--variant wavefront`
+(or `streams`) the wavefront integrator (`--split` for deterministic
+dielectric splitting, `--queue-factor` its stack slots; `--stats` logs its
+occupancy telemetry after the render), `--variant physical` the corrected
+BRDFs with next-event estimation (`--no-nee` for BSDF sampling alone); all
+log the same per-phase lines.
 
 Usage:
   python -m haskell_path_tracer_torch.app.main --device cuda \
       --width 800 --height 600 --spp 64 -o out.png
   python -m haskell_path_tracer_torch.app.main --variant physical -o out.png
+  python -m haskell_path_tracer_torch.app.main --variant wavefront --split \
+      --stats -o out.png
   python -m haskell_path_tracer_torch.app.main --scene scene.json \
       --checkpoint state.npz --checkpoint-every 500 --resume -o out.png
 """
@@ -50,6 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="dump the active scene (+camera) to JSON and exit",
     )
     p.add_argument("--profile-dir", default=None, help="torch.profiler trace dir")
+    p.add_argument(
+        "--stats", action="store_true",
+        help="log wavefront telemetry (per-bounce live-ray occupancy + "
+        "bounce-depth histogram) after rendering; wavefront variant only",
+    )
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -143,6 +153,12 @@ def main(argv=None) -> int:
             args.output, renderer.image(acc),
             exposure=args.exposure, gamma=args.gamma,
         )
+    if args.stats:
+        stats = renderer.wavefront_stats(scene, camera, acc)
+        if stats is None:
+            M.log("stats_unavailable", variant=config.algorithm)
+        else:
+            M.log("wavefront_stats", **stats)
     if not args.quiet:
         M.log("done", output=args.output)
         print(m.to_json())

@@ -317,6 +317,38 @@ HPT_HD void brdf_sample(const float* n, const float* d, float p, float kd,
   }
 }
 
+// The deterministic Fresnel split of the splitting kernel (split.cu): the
+// reflected direction r, the refracted direction t and the reflection
+// weight f (1 under total internal reflection, where t carries no weight).
+// Op for op `_dielectric_split_planes` of
+// haskell_path_tracer_tpu/ops/pallas_split.py, which differs from `glass`
+// above: eta = 1 / ior with no clamp, and the refracted direction divided
+// by max(|t|, 1e-20) rather than multiplied by a guarded reciprocal.
+HPT_HD void dielectric_split(const float* d, const float* n, float ior,
+                             float* r, float* t, float& f) {
+  const float cos_i = -(d[0] * n[0] + d[1] * n[1] + d[2] * n[2]);
+  const bool inside = cos_i < 0.0f;
+  float fn[3];
+  for (int i = 0; i < 3; ++i) fn[i] = inside ? -n[i] : n[i];
+  const float aci = fabsf(cos_i);
+  const float eta = inside ? ior : 1.0f / ior;
+  const float sin2 = eta * eta * fmaxf(1.0f - aci * aci, 0.0f);
+  const bool tir = sin2 > 1.0f;
+  const float cos_t = tir ? 0.0f : sqrtf(fmaxf(1.0f - sin2, 1e-12f));
+  float r0 = (1.0f - ior) / (1.0f + ior);
+  r0 = r0 * r0;
+  const float c1 = 1.0f - aci;
+  const float c2 = c1 * c1;
+  const float fres = r0 + (1.0f - r0) * (c1 * (c2 * c2));
+  f = tir ? 1.0f : fres;
+  const float ia = d[0] * fn[0] + d[1] * fn[1] + d[2] * fn[2];
+  for (int i = 0; i < 3; ++i) r[i] = d[i] - 2.0f * ia * fn[i];
+  const float k = eta * aci - cos_t;
+  for (int i = 0; i < 3; ++i) t[i] = eta * d[i] + k * fn[i];
+  const float tn = fmaxf(sqrtf(t[0] * t[0] + t[1] * t[1] + t[2] * t[2]), 1e-20f);
+  for (int i = 0; i < 3; ++i) t[i] = t[i] / tn;
+}
+
 // One live bounce after the fold: from the ray (o, d), the throughput th,
 // the winner `best` at distance t and the random vector v, the next ray
 // (no, nd), the next throughput nth and the emission em.
@@ -740,5 +772,50 @@ HPT_HD Rng pixel_backward(const Tables& T, const float* po, const float* pd,
   }
   return rng;
 }
+
+#if defined(__CUDACC__)
+// Where the parity kernels (megakernel.cu, megakernel_vjp.cu, split.cu)
+// keep the scene tables: in dynamic shared memory up to the card's opt-in
+// limit per block (227 KB on an H100: 4 B x P x (gcols + 8), so about 3600
+// primitives with 8 geometry columns), read from device memory through the
+// L1 cache beyond it.
+
+// The dynamic shared memory a block of the current device may opt in to.
+inline size_t smem_optin_bytes() {
+  int device = 0, bytes = 48 * 1024;
+  if (cudaGetDevice(&device) == cudaSuccess)
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return (size_t)bytes;
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` (a launch above
+// 48 KB is refused without it).
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The tables the fold reads: copied into `smem` by the whole block when
+// IN_SMEM (call before any thread returns), else the device-memory ones.
+// A template parameter, so that the compiler knows which memory the fold's
+// loads address.
+template <bool IN_SMEM>
+__device__ __forceinline__ Tables stage_tables(const float* geom_g, const float* mat_g,
+                                               int gcols, int ns, int np, int nb, int nt,
+                                               float* smem) {
+  Tables T{geom_g, mat_g, gcols, ns, np, nb, nt};
+  if (IN_SMEM) {
+    const int P = T.count();
+    float* geom = smem;
+    float* mat = smem + P * gcols;
+    for (int i = threadIdx.x; i < P * gcols; i += blockDim.x) geom[i] = geom_g[i];
+    for (int i = threadIdx.x; i < P * 8; i += blockDim.x) mat[i] = mat_g[i];
+    __syncthreads();
+    T.geom = geom;
+    T.mat = mat;
+  }
+  return T;
+}
+#endif
 
 }  // namespace hpt

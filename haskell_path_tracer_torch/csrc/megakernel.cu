@@ -17,9 +17,12 @@
 // launch, whatever spp and the bounce count are.  The design follows:
 //   * the loop state (ray, rng, throughput, radiance) stays in registers
 //     for all samples and bounces;
-//   * the scene tables live in shared memory, loaded once per block; the
-//     fold loops over the per-kind index ranges with the counts passed as
-//     arguments (the TPU kernel unrolled them at trace time);
+//   * the scene tables live in shared memory, loaded once per block, up to
+//     the card's opt-in limit (227 KB, about 3600 primitives with 8
+//     geometry columns, bounce.cuh:stage_tables); larger tables are read
+//     from device memory through the L1 cache, which gives the same bits.
+//     The fold loops over the per-kind index ranges with the counts passed
+//     as arguments (the TPU kernel unrolled them at trace time);
 //   * the fold keeps only (best t, best index); the winner's payload and
 //     normal are read from its row afterwards, which gives the same bits
 //     as the TPU kernel's where-fold;
@@ -52,26 +55,20 @@ using namespace hpt;
 
 constexpr int kThreads = 128;
 
-template <bool HAS_DIELECTRIC, bool RUSSIAN_ROULETTE>
+template <bool HAS_DIELECTRIC, bool RUSSIAN_ROULETTE, bool IN_SMEM>
 __global__ void __launch_bounds__(kThreads)
 megakernel(const float* __restrict__ geom_g, int gcols,
            const float* __restrict__ mat_g, int ns, int np, int nb, int nt,
-           const float* __restrict__ origin, const float* __restrict__ direction,
+           const float* __restrict__ origin,
+           const float* __restrict__ direction,
            const uint32_t* __restrict__ rng_in, float* __restrict__ radiance,
            uint32_t* __restrict__ rng_out, int num_pixels, int spp,
            int num_bounces, int rr_start) {
   extern __shared__ float smem[];
-  const int P = ns + np + nb + nt;
-  float* geom = smem;
-  float* mat = smem + P * gcols;
-  for (int i = threadIdx.x; i < P * gcols; i += blockDim.x) geom[i] = geom_g[i];
-  for (int i = threadIdx.x; i < P * 8; i += blockDim.x) mat[i] = mat_g[i];
-  __syncthreads();
+  const Tables T = stage_tables<IN_SMEM>(geom_g, mat_g, gcols, ns, np, nb, nt, smem);
 
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= num_pixels) return;
-
-  const Tables T{geom, mat, gcols, ns, np, nb, nt};
   const float po[3] = {origin[3 * pix], origin[3 * pix + 1], origin[3 * pix + 2]};
   const float pd[3] = {direction[3 * pix], direction[3 * pix + 1],
                        direction[3 * pix + 2]};
@@ -132,23 +129,29 @@ megakernel(const float* __restrict__ geom_g, int gcols,
 }
 
 template <bool D, bool R>
-void launch(const float* geom, int gcols, const float* mat, int ns, int np,
-            int nb, int nt, const float* origin, const float* direction,
-            const uint32_t* rng_in, float* radiance, uint32_t* rng_out,
-            int num_pixels, int spp, int num_bounces, int rr_start,
-            cudaStream_t stream) {
+cudaError_t launch(const float* geom, int gcols, const float* mat, int ns,
+                   int np, int nb, int nt, const float* origin,
+                   const float* direction, const uint32_t* rng_in,
+                   float* radiance, uint32_t* rng_out, int num_pixels, int spp,
+                   int num_bounces, int rr_start, cudaStream_t stream) {
   const int P = ns + np + nb + nt;
-  const size_t smem = sizeof(float) * (size_t)P * (gcols + 8);
+  const size_t bytes = sizeof(float) * (size_t)P * (gcols + 8);
+  const bool in_smem = bytes <= smem_optin_bytes();
+  const size_t smem = in_smem ? bytes : 0;
+  const auto kernel = in_smem ? megakernel<D, R, true> : megakernel<D, R, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const int blocks = (num_pixels + kThreads - 1) / kThreads;
-  megakernel<D, R><<<blocks, kThreads, smem, stream>>>(
+  kernel<<<blocks, kThreads, smem, stream>>>(
       geom, gcols, mat, ns, np, nb, nt, origin, direction, rng_in, radiance,
       rng_out, num_pixels, spp, num_bounces, rr_start);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes.  Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 = launched).
+// synchronising and returns the launch's error (0 = launched).
 extern "C" int hpt_megakernel_launch(
     const float* geom, int gcols, const float* mat, int num_spheres,
     int num_planes, int num_boxes, int num_triangles, const float* origin,
@@ -156,30 +159,14 @@ extern "C" int hpt_megakernel_launch(
     uint32_t* rng_out, int num_pixels, int spp, int num_bounces,
     int russian_roulette, int rr_start, int has_dielectric, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_pixels > 0) {
-    if (has_dielectric) {
-      if (russian_roulette)
-        launch<true, true>(geom, gcols, mat, num_spheres, num_planes,
-                           num_boxes, num_triangles, origin, direction,
-                           rng_in, radiance, rng_out, num_pixels, spp,
-                           num_bounces, rr_start, s);
-      else
-        launch<true, false>(geom, gcols, mat, num_spheres, num_planes,
-                            num_boxes, num_triangles, origin, direction,
-                            rng_in, radiance, rng_out, num_pixels, spp,
-                            num_bounces, rr_start, s);
-    } else {
-      if (russian_roulette)
-        launch<false, true>(geom, gcols, mat, num_spheres, num_planes,
-                            num_boxes, num_triangles, origin, direction,
-                            rng_in, radiance, rng_out, num_pixels, spp,
-                            num_bounces, rr_start, s);
-      else
-        launch<false, false>(geom, gcols, mat, num_spheres, num_planes,
-                             num_boxes, num_triangles, origin, direction,
-                             rng_in, radiance, rng_out, num_pixels, spp,
-                             num_bounces, rr_start, s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (num_pixels <= 0) return static_cast<int>(cudaGetLastError());
+  auto go = [&](auto fn) {
+    return static_cast<int>(fn(geom, gcols, mat, num_spheres, num_planes,
+                               num_boxes, num_triangles, origin, direction,
+                               rng_in, radiance, rng_out, num_pixels, spp,
+                               num_bounces, rr_start, s));
+  };
+  if (has_dielectric)
+    return russian_roulette ? go(launch<true, true>) : go(launch<true, false>);
+  return russian_roulette ? go(launch<false, true>) : go(launch<false, false>);
 }

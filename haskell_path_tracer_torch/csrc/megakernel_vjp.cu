@@ -20,7 +20,8 @@
 // traffic is 52 B read (origin, direction, rng, radiance cotangent) and
 // 24 B written (ray cotangents) per pixel, plus one atomic add per nonzero
 // table entry per block.  The design follows:
-//   * one thread per pixel, tables in shared memory, as in the forward
+//   * one thread per pixel, tables in shared memory up to the card's
+//     opt-in limit and in device memory beyond it, as in the forward
 //     kernel;
 //   * per live bounce the replay keeps the ray, throughput, random vector
 //     and winner (13 words, `Residual`) in a thread-local array bounded by
@@ -31,12 +32,16 @@
 //   * the sweep starts at the last live bounce: a dead bounce passes its
 //     ray through and zeroes the throughput, so every cotangent after the
 //     first dead bounce is zero;
-//   * per bounce only the winner's row receives a cotangent.  Each block
-//     sums its rows in a shared-memory tile [P, gcols + 8] with shared
+//   * per bounce only the winner's row receives a cotangent.  Where the
+//     tables and a cotangent tile of the same size both fit the block's
+//     shared memory (about 1800 primitives with 8 geometry columns), each
+//     block sums its rows in a shared tile [P, gcols + 8] with shared
 //     atomics, and adds the tile's nonzero entries to the output with one
-//     global atomicAdd each.  The order of these float sums changes from
-//     run to run, so the table cotangents are not bitwise reproducible
-//     (the tolerance that covers it is in ops/megakernel_vjp.py);
+//     global atomicAdd each; beyond that every nonzero row entry is one
+//     global atomicAdd, as in the NEE backward.  The order of these float
+//     sums changes from run to run, so the table cotangents are not
+//     bitwise reproducible (the tolerance that covers it is in
+//     ops/megakernel_vjp.py);
 //   * any H x W: ceil(H*W / 128) blocks, the ragged tail masked.
 //
 // Floating point: like the forward kernel, built with -fmad=false and
@@ -59,7 +64,8 @@ using namespace hpt;
 constexpr int kThreads = 128;
 constexpr int kMaxBounces = 16;
 
-// Adds one bounce's row cotangents into the block's shared tile.
+// Adds one bounce's row cotangents into the block's shared tile, or into
+// the output tables in device memory.
 struct SharedAcc {
   float* dgeom;  // [P, gcols]
   float* dmat;   // [P, 8]
@@ -78,7 +84,10 @@ struct SharedAcc {
   }
 };
 
-template <bool HAS_DIELECTRIC>
+// TABLES_IN_SMEM: the tables in shared memory; ACC_IN_SMEM (which implies
+// it): the cotangent tile too.  Template parameters, so that the compiler
+// knows which memory the loads and atomics address.
+template <bool HAS_DIELECTRIC, bool TABLES_IN_SMEM, bool ACC_IN_SMEM>
 __global__ void __launch_bounds__(kThreads)
 megakernel_vjp(const float* __restrict__ geom_g, int gcols,
                const float* __restrict__ mat_g, int ns, int np, int nb,
@@ -91,23 +100,18 @@ megakernel_vjp(const float* __restrict__ geom_g, int gcols,
                int num_bounces) {
   extern __shared__ float smem[];
   const int P = ns + np + nb + nt;
-  float* geom = smem;
-  float* mat = geom + P * gcols;
-  float* acc_geom = mat + P * 8;
-  float* acc_mat = acc_geom + P * gcols;
-  for (int i = threadIdx.x; i < P * gcols; i += blockDim.x) {
-    geom[i] = geom_g[i];
-    acc_geom[i] = 0.0f;
+  // The cotangent tile follows the tables when both sit in shared memory
+  // (the tables' staging synchronises).
+  float* acc_geom = ACC_IN_SMEM ? smem + P * (gcols + 8) : d_geom;
+  float* acc_mat = ACC_IN_SMEM ? acc_geom + P * gcols : d_mat;
+  if (ACC_IN_SMEM) {
+    for (int i = threadIdx.x; i < P * gcols; i += blockDim.x) acc_geom[i] = 0.0f;
+    for (int i = threadIdx.x; i < P * 8; i += blockDim.x) acc_mat[i] = 0.0f;
   }
-  for (int i = threadIdx.x; i < P * 8; i += blockDim.x) {
-    mat[i] = mat_g[i];
-    acc_mat[i] = 0.0f;
-  }
-  __syncthreads();
+  const Tables T = stage_tables<TABLES_IN_SMEM>(geom_g, mat_g, gcols, ns, np, nb, nt, smem);
 
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix < num_pixels) {
-    const Tables T{geom, mat, gcols, ns, np, nb, nt};
     const float po[3] = {origin[3 * pix], origin[3 * pix + 1],
                          origin[3 * pix + 2]};
     const float pd[3] = {direction[3 * pix], direction[3 * pix + 1],
@@ -126,6 +130,7 @@ megakernel_vjp(const float* __restrict__ geom_g, int gcols,
       d_direction[3 * pix + i] = g_d[i];
     }
   }
+  if (!ACC_IN_SMEM) return;
   __syncthreads();
 
   for (int i = threadIdx.x; i < P * gcols; i += blockDim.x)
@@ -134,10 +139,35 @@ megakernel_vjp(const float* __restrict__ geom_g, int gcols,
     if (acc_mat[i] != 0.0f) atomicAdd(&d_mat[i], acc_mat[i]);
 }
 
+template <bool D>
+cudaError_t launch(const float* geom, int gcols, const float* mat, int ns,
+                   int np, int nb, int nt, const float* origin,
+                   const float* direction, const uint32_t* rng_in,
+                   const float* g_rad, float* d_geom, float* d_mat,
+                   float* d_origin, float* d_direction, int num_pixels,
+                   int spp, int num_bounces, cudaStream_t stream) {
+  const int P = ns + np + nb + nt;
+  const size_t bytes = sizeof(float) * (size_t)P * (gcols + 8);
+  const size_t optin = smem_optin_bytes();
+  const bool tables_in_smem = bytes <= optin;
+  const bool acc_in_smem = 2 * bytes <= optin;
+  const size_t smem = acc_in_smem ? 2 * bytes : (tables_in_smem ? bytes : 0);
+  const auto kernel = acc_in_smem      ? megakernel_vjp<D, true, true>
+                      : tables_in_smem ? megakernel_vjp<D, true, false>
+                                       : megakernel_vjp<D, false, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (num_pixels + kThreads - 1) / kThreads;
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      geom, gcols, mat, ns, np, nb, nt, origin, direction, rng_in, g_rad,
+      d_geom, d_mat, d_origin, d_direction, num_pixels, spp, num_bounces);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes.  Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 = launched), or
+// synchronising and returns the launch's error (0 = launched), or
 // cudaErrorInvalidValue when num_bounces exceeds the replay's kMaxBounces.
 extern "C" int hpt_megakernel_vjp_launch(
     const float* geom, int gcols, const float* mat, int num_spheres,
@@ -147,21 +177,13 @@ extern "C" int hpt_megakernel_vjp_launch(
     int num_pixels, int spp, int num_bounces, int has_dielectric,
     void* stream) {
   if (num_bounces > kMaxBounces) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_pixels > 0) {
-    const int P = num_spheres + num_planes + num_boxes + num_triangles;
-    const size_t smem = 2 * sizeof(float) * (size_t)P * (gcols + 8);
-    const int blocks = (num_pixels + kThreads - 1) / kThreads;
-    if (has_dielectric)
-      megakernel_vjp<true><<<blocks, kThreads, smem, s>>>(
-          geom, gcols, mat, num_spheres, num_planes, num_boxes, num_triangles,
-          origin, direction, rng_in, g_rad, d_geom, d_mat, d_origin,
-          d_direction, num_pixels, spp, num_bounces);
-    else
-      megakernel_vjp<false><<<blocks, kThreads, smem, s>>>(
-          geom, gcols, mat, num_spheres, num_planes, num_boxes, num_triangles,
-          origin, direction, rng_in, g_rad, d_geom, d_mat, d_origin,
-          d_direction, num_pixels, spp, num_bounces);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (num_pixels <= 0) return static_cast<int>(cudaGetLastError());
+  auto go = [&](auto fn) {
+    return static_cast<int>(fn(geom, gcols, mat, num_spheres, num_planes,
+                               num_boxes, num_triangles, origin, direction,
+                               rng_in, g_rad, d_geom, d_mat, d_origin,
+                               d_direction, num_pixels, spp, num_bounces,
+                               static_cast<cudaStream_t>(stream)));
+  };
+  return has_dielectric ? go(launch<true>) : go(launch<false>);
 }

@@ -8,6 +8,8 @@ machine without JAX renders the scenes the JAX package is measured on:
     over a 60 x 12.5 x 52 box with ~1% emitters and a floor);
   * `tri_emitter_scene` — config 8's: the Cornell scene plus two ceiling
     light triangles and two blocker triangles;
+  * `suite_glass_scene` — config 3's (deterministic splitting): two glass
+    spheres (IOR 1.5 and 1.33) before an emissive back wall and a floor;
   * `glassy_scene`, `zero_light_scene`, `box_tri_scene` — the scenes of
     ``tests/test_pallas_nee.py`` that cover dielectrics, a scene with no
     NEE emitter (lit by an emissive plane) and all four kinds with three
@@ -87,6 +89,29 @@ def tri_emitter_scene(device) -> Scene:
         device,
     )
     return Scene(spheres=base.spheres, planes=base.planes, triangles=tris)
+
+
+def suite_glass_scene(device) -> Scene:
+    spheres = make_spheres(
+        [[0.0, 0.0, -4.0], [1.8, 0.5, -6.0]],
+        [1.3, 0.9],
+        make_materials(
+            [([0.97, 0.98, 1.0], 0.0, BRDF_DIELECTRIC, 1.5),
+             ([0.9, 0.95, 1.0], 0.0, BRDF_DIELECTRIC, 1.33)],
+            device,
+        ),
+        device,
+    )
+    planes = make_planes(
+        [[0.0, 0.0, -9.0], [0.0, -3.0, 0.0]],
+        [[0.0, 0.0, 1.0], [0.0, 1.0, 0.0]],
+        make_materials(
+            [([1.0, 0.9, 0.7], 3.0, BRDF_MATTE, 1.0), ([0.5, 0.5, 0.6], 0.0, BRDF_MATTE, 1.2)],
+            device,
+        ),
+        device,
+    )
+    return Scene(spheres=spheres, planes=planes)
 
 
 def glassy_scene(device) -> Scene:

@@ -63,7 +63,7 @@ def dielectric_split(ray_d, normal, ior):
     sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
     tir = sin2_t > 1.0
     cos_t_arg = torch.where(tir, 1.0, torch.clamp(1.0 - sin2_t, min=1e-12))
-    cos_t = torch.where(tir, 0.0, torch.sqrt(cos_t_arg))
+    cos_t = torch.where(tir, 0.0, linalg.sqrt(cos_t_arg))
 
     r0 = (1.0 - ior) / (1.0 + ior)
     r0 = r0 * r0
@@ -71,9 +71,9 @@ def dielectric_split(ray_d, normal, ior):
     reflect_weight = torch.where(tir, 1.0, fresnel)
 
     refl = linalg.reflect(ray_d, n)
-    refr = linalg.normalize_safe(
-        eta[..., None] * ray_d + (eta * cos_i - cos_t)[..., None] * n
-    )
+    refr = eta[..., None] * ray_d + (eta * cos_i - cos_t)[..., None] * n
+    # normalize_safe with the correctly rounded square root (linalg.sqrt).
+    refr = refr / torch.clamp(linalg.sqrt(linalg.quadrance(refr)), min=1e-20)[..., None]
     return refl, refr, reflect_weight
 
 

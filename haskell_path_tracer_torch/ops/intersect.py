@@ -15,15 +15,20 @@ lowest primitive index, in the order spheres ++ planes ++ boxes ++
 triangles.  The hit payload is read with an index gather of the winner's
 row (the JAX package's one-hot matmul existed for the TPU's matrix unit).
 
-Above `CHUNKED_THRESHOLD` primitives the spheres are folded in chunks of
-`CHUNK_SIZE` (a strict `<` between chunks keeps the first index on ties)
-and the other kinds merged after them in index order: the JAX package's
-XLA fallback, in plain tensor ops.  `sphere_occluded_any` and
-`shadow_occluded` are the physical/NEE family's shadow test.
+Above `CHUNKED_THRESHOLD` primitives the spheres are folded first and the
+other kinds merged after them in index order.  On CUDA tensors the sphere
+fold is the nearest-sphere kernel (`ops/sphere_fold.py:sphere_nearest`), as
+the JAX package's `nearest_hit` takes its Pallas kernel on a TPU; on the
+CPU, and inside `plain_sphere_fold()`, it is `sphere_nearest_chunked`, the
+JAX package's XLA fallback in plain tensor ops: chunks of `CHUNK_SIZE`, a
+strict `<` between chunks keeping the first index on ties.  Both give the
+same bits.  `sphere_occluded_any` and `shadow_occluded` are the
+physical/NEE family's shadow test.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -238,10 +243,37 @@ def sphere_nearest_chunked(ray_o, ray_d, spheres: Spheres, reject_below=0.0):
     return t, prim
 
 
+_plain_sphere_fold = False
+
+
+@contextmanager
+def plain_sphere_fold():
+    """Within the block the large-scene fold runs `sphere_nearest_chunked`
+    on CUDA tensors too: the plain version that a check on the card holds
+    the kernels against."""
+    global _plain_sphere_fold
+    prev, _plain_sphere_fold = _plain_sphere_fold, True
+    try:
+        yield
+    finally:
+        _plain_sphere_fold = prev
+
+
 def _nearest_t_prim_chunked(ray_o, ray_d, scene: Scene, reject_below=0.0):
-    """Large-scene nearest hit: `sphere_nearest_chunked`, then the other
-    kinds merged in index order."""
-    t, prim = sphere_nearest_chunked(ray_o, ray_d, scene.spheres, reject_below)
+    """Large-scene nearest hit: the spheres' nearest (t, prim) — the
+    nearest-sphere kernel on CUDA tensors, `sphere_nearest_chunked` on the
+    CPU — then the other kinds merged in index order."""
+    if ray_o.is_cuda and scene.spheres.count and not _plain_sphere_fold:
+        # sphere_fold imports this module.
+        from .sphere_fold import sphere_nearest
+
+        ray_o, ray_d = torch.broadcast_tensors(ray_o, ray_d)
+        shape = ray_o.shape[:-1]
+        t, prim = sphere_nearest(ray_o.reshape(-1, 3), ray_d.reshape(-1, 3),
+                                 scene.spheres.pos, scene.spheres.radius, float(reject_below))
+        t, prim = t.reshape(shape), prim.reshape(shape).long()
+    else:
+        t, prim = sphere_nearest_chunked(ray_o, ray_d, scene.spheres, reject_below)
     return merge_non_sphere(ray_o, ray_d, scene, t, prim, reject_below)
 
 

@@ -51,9 +51,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
-# Dynamic shared memory a block may take without opting in.
-_SMEM_LIMIT = 48 * 1024
-
 # Launches of the CUDA kernel by `trace_inline_fused` (one per call on CUDA
 # tensors).  Callers reset it to 0 to count the launches of a run.
 LAUNCHES = 0
@@ -497,7 +494,9 @@ def _check(name, t, dtype, shape, device):
 def launch_kernel(geom, mat, counts, rays, rng, num_bounces, spp,
                   russian_roulette, rr_start, has_dielectric):
     """Launch the CUDA kernel on packed tables (`scene_tables`) and the
-    per-kind primitive `counts` (spheres, planes, boxes, triangles).
+    per-kind primitive `counts` (spheres, planes, boxes, triangles), of any
+    size: the kernel keeps tables up to the card's shared-memory opt-in
+    limit in shared memory and reads larger ones from device memory.
     Checks every operand, allocates the outputs, launches on the current
     stream without synchronising and counts the launch in `LAUNCHES`."""
     global LAUNCHES
@@ -511,8 +510,6 @@ def launch_kernel(geom, mat, counts, rays, rng, num_bounces, spp,
     _check("mat", mat, torch.float32, (P, 8), device)
     if geom.shape[1] not in (8, 16):
         raise ValueError(f"geom has {geom.shape[1]} columns, expected 8 or 16")
-    if 4 * P * (geom.shape[1] + 8) > _SMEM_LIMIT:
-        raise ValueError(f"{P} primitives exceed the kernel's shared-memory tables")
     if min(spp, num_bounces) < 0:
         raise ValueError("spp and num_bounces must be >= 0")
     radiance = torch.empty((H, W, 3), dtype=torch.float32, device=device)

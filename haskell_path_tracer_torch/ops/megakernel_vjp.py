@@ -92,9 +92,6 @@ def _check_inputs(geom, mat, counts, rays, rng, g_rad, num_bounces, spp):
     MK._check("mat", mat, torch.float32, (P, 8), device)
     if geom.shape[1] not in (8, 16):
         raise ValueError(f"geom has {geom.shape[1]} columns, expected 8 or 16")
-    # The tables and their cotangent tiles share the block's shared memory.
-    if 2 * 4 * P * (geom.shape[1] + 8) > MK._SMEM_LIMIT:
-        raise ValueError(f"{P} primitives exceed the kernel's shared-memory tables")
     if min(spp, num_bounces) < 0:
         raise ValueError("spp and num_bounces must be >= 0")
 

@@ -46,7 +46,6 @@ from ..ops.intersect import (
     INFINITE,
     PLANE_DENOM_EPS,
     hit_from_t_prim,
-    merge_non_sphere,
     nearest_t_prim,
     plane_distances,
     shadow_occluded,
@@ -406,11 +405,12 @@ def _trace_physical_fused(scene: Scene, rays: Rays, rng_state, num_bounces: int 
     The emitters come from a compact light table built once per trace:
     centers, radii, emission and global index, one row per emissive sphere,
     chosen by the rank rule clamp(floor(u * count), 0, count - 1) of
-    `_select_light`.  The primary hit (eps = 0) is `sphere_nearest`'s above
-    CHUNKED_THRESHOLD primitives, the planes merged after it, as the JAX
-    package's `nearest_hit` takes it.  Differentiable like `_trace`, with the
+    `_select_light`.  The primary hit (eps = 0) is `nearest_t_prim`'s: on
+    CUDA tensors above CHUNKED_THRESHOLD primitives the nearest-sphere
+    kernel, the planes merged after it, as the JAX package's `nearest_hit`
+    takes it.  Differentiable like `_trace`, with the
     sphere winners' distances through the two queries' backward."""
-    from ..ops.sphere_fold import sphere_dual_query, sphere_nearest
+    from ..ops.sphere_fold import sphere_dual_query
 
     if scene.triangles.count or scene.boxes.count or not scene.spheres.count:
         raise ValueError("the fused NEE trace takes scenes of spheres and planes, with a sphere")
@@ -445,12 +445,7 @@ def _trace_physical_fused(scene: Scene, rays: Rays, rng_state, num_bounces: int 
                 torch.where(better, n_spheres + torch.clamp(karg, max=m - 1), prim))
 
     ray_o, ray_d = rays.origin, rays.direction
-    if scene.num_primitives > CHUNKED_THRESHOLD:
-        t, prim = sphere_nearest(ray_o.reshape(-1, 3), ray_d.reshape(-1, 3), pos, radius)
-        t, prim = merge_non_sphere(ray_o, ray_d, scene, t.reshape(shape),
-                                   prim.reshape(shape).long())
-    else:
-        t, prim = nearest_t_prim(ray_o, ray_d, scene)
+    t, prim = nearest_t_prim(ray_o, ray_d, scene)
     rng = rng_state
     result = torch.zeros_like(ray_o)
     throughput = torch.ones_like(ray_o)

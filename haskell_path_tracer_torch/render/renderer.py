@@ -1,7 +1,7 @@
 """The progressive renderer, with the reference's schedule.
 
 Counterpart of ``haskell_path_tracer_tpu/render/renderer.py`` for the
-inline and physical algorithms: one sample per step for the first 100
+inline, wavefront and physical algorithms: one sample per step for the first 100
 iterations, then batches of max(30, iterations / 50); every
 `reseed_interval` samples the per-pixel RNGs are reseeded.  PyTorch runs
 eagerly, so there is no compile boundary; a step launches asynchronously on
@@ -19,7 +19,7 @@ import torch
 from ..models.objects import Accumulator, Camera, Scene
 from ..ops import rng as rng_ops
 from ..utils.config import RenderConfig
-from . import integrator, nee
+from . import integrator, nee, wavefront
 
 
 def resolve_device(name: str) -> torch.device:
@@ -34,6 +34,10 @@ class Renderer:
     """Progressive path tracer bound to a (resolution, algorithm, bounces,
     device) configuration.
 
+    `algorithm="wavefront"` renders the wavefront integrator
+    (`render/wavefront.py:render_batch_wavefront`), with `split` the
+    deterministic-splitting one (`render_batch_split_auto`, honouring
+    `kernel`: the CUDA kernel on a CUDA device under "auto").
     `algorithm="physical"` renders the physical/NEE estimator
     (`render/nee.py:render_batch_physical`; `nee` and `kernel` as there).
     Its BRDF kinds and emitters are read from a scene once, when `step`
@@ -68,13 +72,21 @@ class Renderer:
                 num_bounces=config.bounces,
                 russian_roulette=config.russian_roulette,
             )
+        elif config.algorithm == "wavefront":
+            if config.split:
+                self._step = partial(
+                    wavefront.render_batch_split_auto, num_bounces=config.bounces,
+                    queue_factor=config.queue_factor, kernel=config.kernel,
+                )
+            else:
+                self._step = partial(
+                    wavefront.render_batch_wavefront, num_bounces=config.bounces,
+                    russian_roulette=config.russian_roulette,
+                )
         else:
-            raise NotImplementedError(
-                f"algorithm {config.algorithm!r} is not ported yet (ROADMAP "
-                "Queue A #10, wavefront); use 'inline' or 'physical'"
-            )
+            raise ValueError(f"unknown algorithm {config.algorithm!r}")
         self.device = resolve_device(config.device)
-        self._fused = config.kernel in ("auto", "cuda")
+        self._fused = config.algorithm == "inline" and config.kernel in ("auto", "cuda")
 
     def init_accumulator(self, seed: Optional[int] = None) -> Accumulator:
         return integrator.make_accumulator(
@@ -145,3 +157,26 @@ class Renderer:
     def image(self, acc: Accumulator) -> np.ndarray:
         """Normalized (divided-by-iterations) image on the host."""
         return acc.image.cpu().numpy()
+
+    def wavefront_stats(self, scene: Scene, camera: Camera, acc: Accumulator):
+        """One probe sample's wavefront telemetry, the accumulator left as
+        it is: {"occupancy", "depth_histogram", "capacity"} as lists and an
+        int, from the tensor loop (with splitting, its segments per depth).
+        None for the other algorithms."""
+        if self.config.algorithm != "wavefront":
+            return None
+        if self.config.split:
+            _, stats = wavefront.render_sample_wavefront_split(
+                scene, camera, acc, num_bounces=self.config.bounces,
+                queue_factor=self.config.queue_factor, return_stats=True,
+            )
+        else:
+            _, stats = wavefront.render_sample_wavefront(
+                scene, camera, acc, num_bounces=self.config.bounces,
+                russian_roulette=self.config.russian_roulette, return_stats=True,
+            )
+        return {
+            "occupancy": stats.occupancy.tolist(),
+            "depth_histogram": wavefront.depth_histogram(stats).tolist(),
+            "capacity": int(stats.capacity),
+        }

@@ -2,11 +2,15 @@
 
 Counterpart of ``haskell_path_tracer_tpu/utils/config.py``, with the
 reference's values as defaults (800x600, 15 bounces, reseed every 2000
-samples).  `algorithm` is "inline" (the reference's parity estimator) or
-"physical" (corrected BRDFs, with next-event estimation unless `nee` is
-False).  `kernel` picks the backend: "auto" (the algorithm's CUDA
-megakernel on a CUDA device, the plain tensor loop elsewhere), "torch"
-(the plain loop) or "cuda" (the megakernel; raises off the GPU).
+samples).  `algorithm` is "inline" (the reference's parity estimator),
+"wavefront" (the reference's `Streams`, the CLI's `--variant
+wavefront|streams`; with `split`, deterministic dielectric splitting on a
+stack of round(`queue_factor`) slots per lane) or "physical" (corrected
+BRDFs, with next-event estimation unless `nee` is False).  `kernel` picks
+the backend: "auto" (the algorithm's CUDA kernel on a CUDA device, the
+plain tensor loop elsewhere), "torch" (the plain loop) or "cuda" (the
+kernel; raises off the GPU).  The wavefront without splitting has no
+kernel of its own.
 `sampler` is the physical algorithm's RNG: "sfc32", the per-pixel stateful
 generator; "threefry" (the JAX package's stateless sampler) is not ported
 yet and raises.
@@ -24,8 +28,7 @@ from typing import Optional
 class RenderConfig:
     width: int = 800
     height: int = 600
-    # "inline" or "physical"; the JAX package's "wavefront" is still to
-    # come (ROADMAP Queue A).
+    # "inline", "wavefront" or "physical".
     algorithm: str = "inline"
     nee: bool = True
     sampler: str = "sfc32"
@@ -33,6 +36,11 @@ class RenderConfig:
     bounces: int = 15
     reseed_interval: int = 2000
     russian_roulette: bool = False
+    # Deterministic dielectric splitting (wavefront only).
+    split: bool = False
+    # Pending children per lane, round(queue_factor), at least 1 (the CLI's
+    # default is 2.0, as in the JAX package).
+    queue_factor: float = 1.0
     seed: Optional[int] = None
     device: str = "cuda"
 
@@ -48,8 +56,8 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
         "--variant",
         choices=["inline", "wavefront", "streams", "physical"],
         default="inline",
-        help="rendering algorithm (physical = corrected BRDFs + NEE); "
-        "wavefront and streams are not ported yet",
+        help="rendering algorithm (streams is an alias for wavefront, "
+        "matching the reference CLI; physical = corrected BRDFs + NEE)",
     )
     parser.add_argument(
         "--no-nee", dest="nee", action="store_false", default=True,
@@ -67,6 +75,16 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--device", default=d.device,
         help="torch device to render on (default cuda; raises without a GPU)",
+    )
+    parser.add_argument(
+        "--split", action="store_true", default=False,
+        help="wavefront variant: deterministic dielectric ray splitting "
+        "(both Fresnel branches traced; the CUDA kernel on a GPU)",
+    )
+    parser.add_argument(
+        "--queue-factor", type=float, default=2.0,
+        help="split stack slots per lane, round(queue-factor) (children "
+        "beyond them are dropped)",
     )
     parser.add_argument("--bounces", type=int, default=d.bounces)
     parser.add_argument("--spp", type=int, default=64, help="total samples")
@@ -89,6 +107,8 @@ def config_from_args(args: argparse.Namespace) -> RenderConfig:
         bounces=args.bounces,
         reseed_interval=args.reseed_interval,
         russian_roulette=args.russian_roulette,
+        split=args.split,
+        queue_factor=args.queue_factor,
         seed=args.seed,
         device=args.device,
     )

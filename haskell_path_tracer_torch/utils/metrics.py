@@ -58,11 +58,12 @@ class RenderMetrics:
             self.phase_seconds[name] = self.phase_seconds.get(name, 0.0) + dt
 
 
-def log(event: str, stream=sys.stderr, **fields) -> None:
-    """One structured log line: {"event": ..., "t": ..., **fields}."""
+def log(event: str, stream=None, **fields) -> None:
+    """One structured log line: {"event": ..., "t": ..., **fields}, on
+    `stream` (the current sys.stderr by default)."""
     rec = {"event": event, "t": round(time.time(), 3)}
     rec.update(fields)
-    print(json.dumps(rec), file=stream, flush=True)
+    print(json.dumps(rec), file=sys.stderr if stream is None else stream, flush=True)
 
 
 @contextmanager

@@ -94,8 +94,12 @@ def test_renderer_render_matches_jax_with_reseeding():
 
 
 def test_unported_algorithm_raises():
+    """The stateless threefry sampler is still to port (ROADMAP); an
+    algorithm the JAX package does not have is refused."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(RenderConfig(device="cpu", algorithm="wavefront"))
+        Renderer(RenderConfig(device="cpu", algorithm="physical", sampler="threefry"))
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        Renderer(RenderConfig(device="cpu", algorithm="streams"))
 
 
 @pytest.mark.parametrize("writer", ["torch", "jax"])

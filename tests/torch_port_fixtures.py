@@ -4,12 +4,16 @@ render, built with the JAX package and carried across as numpy arrays.
 Also writes the golden files that `chip_smoke.py` holds the CUDA kernels
 against on a machine without JAX:
 
-    JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py [nee | nee_grad]
+    JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py [nee | nee_grad | split]
 
 regenerates ``tests/data/torch_port_nee_golden.npz`` (seconds) with `nee`,
 ``tests/data/torch_port_nee_grad_golden.npz`` (seconds) with `nee_grad`,
-and all three, ``tests/data/torch_port_golden.npz`` (minutes) too, without
-an argument.  The NEE gradient file holds, for cornell8, tri and glassy at
+``tests/data/torch_port_split_golden.npz`` (seconds) with `split`, and all
+four, ``tests/data/torch_port_golden.npz`` (minutes) too, without an
+argument.  The split file holds, for each splitting case, the JAX
+package's inputs (scene arrays, primary rays, initial rng) and the outputs
+of its Pallas splitting kernel, `trace_split_pallas` in interpret mode, at
+128x8.  The NEE gradient file holds, for cornell8, tri and glassy at
 32x16, 2 spp and 3 bounces, the inputs, a radiance cotangent `wts` and
 `jax.vjp` of the JAX package's XLA estimator for every `SceneParams` field
 and the rays (`jax_nee_grad_trace`).  The NEE file holds,
@@ -425,6 +429,58 @@ def nee_grad_golden_arrays(traces):
     return out
 
 
+SPLIT_GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "data", "torch_port_split_golden.npz")
+SPLIT_W, SPLIT_H = 128, 8
+# name -> (scene, spp, bounces, stack depth, accumulator seed); the glass
+# scene is benchmarks/suite.py config 3's (tests/test_pallas_split.py's),
+# seen from the origin as there; "mixed" has all four kinds and no glass.
+SPLIT_CASES = {"glass": ("glass", 2, 4, 2, 61), "glass_deep": ("glass", 1, 8, 4, 62),
+               "mixed": ("mixed", 2, 5, 2, 63)}
+
+
+def jax_split_scene(name):
+    """(scene, camera) of the JAX package for a splitting case."""
+    if name == "mixed":
+        return jax_scene("mixed")
+    import test_pallas_split as T
+
+    return T.glass_scene(), JaxCamera.create([0.0] * 3, [0.0] * 3, 90.0)
+
+
+def jax_split_trace(case):
+    """A splitting case's inputs and the JAX package's Pallas splitting
+    kernel's outputs (interpret mode)."""
+    from haskell_path_tracer_tpu.ops.pallas_split import trace_split_pallas
+
+    scene_name, spp, bounces, stack_depth, seed = SPLIT_CASES[case]
+    jscene, jcam = jax_split_scene(scene_name)
+    rays = jax_primary_rays(jcam, SPLIT_W, SPLIT_H)
+    rng = J.make_accumulator(SPLIT_W, SPLIT_H, seed=seed).rng
+    radiance, rng_out = trace_split_pallas(jscene, rays, rng, num_bounces=bounces, spp=spp,
+                                           stack_depth=stack_depth, interpret=True)
+    return {
+        "scene": C.scene_to_numpy(jscene),
+        "origin": np.asarray(rays.origin, np.float32),
+        "direction": np.asarray(rays.direction, np.float32),
+        "rng_in": np.asarray(rng),
+        "radiance": np.asarray(radiance, np.float32),
+        "rng_out": np.asarray(rng_out),
+        "config": np.array([spp, bounces, stack_depth], np.int32),
+    }
+
+
+def split_golden_arrays(traces):
+    """Flatten {case: jax_split_trace(case)} into the split golden file's
+    arrays."""
+    out = {}
+    for case, t in traces.items():
+        for k, v in t["scene"].items():
+            out[f"{case}__scene__{k}"] = v
+        for k in ("origin", "direction", "rng_in", "radiance", "rng_out", "config"):
+            out[f"{case}__{k}"] = t[k]
+    return out
+
+
 def lane_agreement(rng_a, rng_b, color_a, color_b):
     """(share of lanes whose rng words all agree, share of color values
     isclose at rtol = atol = 1e-4, the same share among the values that
@@ -443,11 +499,16 @@ if __name__ == "__main__":
 
     nee_grad = {NEE_GRAD_GOLDEN_PATH: lambda: nee_grad_golden_arrays(
         {c: jax_nee_grad_trace(c) for c in NEE_GRAD_GOLDEN_CASES})}
+    split = {SPLIT_GOLDEN_PATH: lambda: split_golden_arrays(
+        {c: jax_split_trace(c) for c in SPLIT_CASES})}
     files = {NEE_GOLDEN_PATH: lambda: nee_golden_arrays({c: jax_nee_trace(c) for c in NEE_CASES})}
     if sys.argv[1:] == ["nee_grad"]:
         files = nee_grad
+    elif sys.argv[1:] == ["split"]:
+        files = split
     elif sys.argv[1:] != ["nee"]:
         files.update(nee_grad)
+        files.update(split)
         files[GOLDEN_PATH] = lambda: golden_arrays(
             {c: jax_trace(c) for c in GOLDEN_CASES},
             {c: jax_grad_trace(c) for c in GRAD_CASES},
