@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's six CUDA libraries from ``haskell_path_tracer_torch/csrc``
-(one nvcc each, started together) and runs twenty-four phases, each
+(one nvcc each, started together) and runs twenty-five phases, each
 printing one line; any failure raises and the script exits non-zero
 without printing a result:
 
@@ -70,13 +70,17 @@ without printing a result:
      and its plain version at the serving shape (800x600 / 15 / 1 spp),
      and `Renderer.step` at 1 spp;
  16. NEE backward against its plain version: `loss_and_grad(estimator=
-     "physical", backend="cuda", light_idx)` against backend="torch", and
-     the kernel in raster and sorted order against `backward_reference`
-     (autograd of the plain trace, its cotangents mapped to the scene's
-     leaves) on Cornell, config 8's triangle emitters, glass, no emitter,
-     1000 spheres, a ragged 67x29 and 15 bounces; on config 8's scene,
-     whose two emitter triangles are coplanar and overlap, the vertex
-     fields are reported, not held (see `TIED_FIELDS`); the Function's
+     "physical", backend="cuda", light_idx)` in the residual mode (the
+     default: the recording forward and the fold-free backward) and in the
+     replay mode (the byte budget at 0) against backend="torch", and the
+     kernel in both modes, raster and sorted order, against
+     `backward_reference` (autograd of the plain trace, its cotangents
+     mapped to the scene's leaves), the residual mode against the replay
+     mode too, on Cornell, config 8's triangle emitters, glass, no emitter,
+     1000 spheres, 4000 spheres (the residual mode's cotangent tiles too
+     large for shared memory), a ragged 67x29 and 15 bounces; on config
+     8's scene, whose two emitter triangles are coplanar and overlap, the
+     vertex fields are reported, not held (see `TIED_FIELDS`); the Function's
      forward bit-equal to the NEE kernel's, and the sorted frame's to the
      raster one; the kernel refuses 17 bounces;
  17. the kernel route against the JAX package's gradients
@@ -89,16 +93,24 @@ without printing a result:
  19. the physical training path, counted from 0: SGD through
      `loss_and_grad(estimator="physical", light_idx)` on suite config 7's
      scene towards a target with the emitters' light halved, 5 steps at
-     512x512 / 1 spp / 4 bounces and 2 at 1920x1088 / 8 / 4; every step
-     launches the NEE forward, the probe (sorted frame) and the backward
-     once, the loss falls;
- 20. gradient times at config 7's shapes: the backward and forward
-     kernels in both frames, the SGD step in both frames; the backward
-     kernel held against its plain version at 512x512 / 1 / 4 (both
-     frames, the plain over row tiles) and on a full-width strip of
-     1920x1088 / 8 / 4 (the kernel launched on the whole image with the
-     cotangent zero outside the strip), and timed with it at 512x512; the
-     two folds at 1920x1088 x 1000 spheres, with their bounds;
+     512x512 / 1 spp / 4 bounces and 2 at 1920x1088 / 8 / 4 in the
+     residual mode, then 1 at 512x512 in the replay mode (the byte budget
+     at 0, as a gradient above it runs); every step launches the NEE
+     forward (its recording instance in the residual mode), the probe
+     (sorted frame) and the backward once, the loss falls;
+ 20. gradient times at config 7's shapes: the backward kernel in both
+     modes and the forward kernel's production and recording instances,
+     in both frames, with their bounds; the SGD step in both frames in the
+     residual mode and in the sorted frame in the replay mode; the
+     residual backward with its cotangent tiles in shared and in device
+     memory on 1000, 1600 and 3400 spheres, the two held against each
+     other; the backward kernel in both modes (the residual mode with
+     either tile placement) held against its plain versions at 512x512 /
+     1 / 4 (both frames, the plain over row tiles: autograd of the plain
+     trace, and of the word replay) and on a full-width strip of 1920x1088
+     / 8 / 4 (the kernel launched on the whole image with the cotangent
+     zero outside the strip), and timed with them at 512x512; the two folds at 1920x1088 x 1000 spheres, with their
+     bounds;
  21. the splitting kernel against its plain version (`trace_split_reference`)
      on the card: config 3's glass scene at 512x512 / 8 b / 4 spp, the
      reference scene at 800x600 / 15 / 1, a ragged 333x97, stack depths 1,
@@ -121,7 +133,14 @@ without printing a result:
      queue_factor 2; rays/s as suite.py counts them, W H spp b, and the
      processed segments), at 800x600 / 15 / 1 on the glass and reference
      scenes with `Renderer.step` and the plain version, with bounds; the
-     forward kernel at 800x600 / 15 / 1 on 1000 spheres.
+     forward kernel at 800x600 / 15 / 1 on 1000 spheres;
+ 25. the NEE gradient's recording forward: the NEE kernel's recording
+     instance bit-equal to its production instance in radiance and rng,
+     raster and sorted, on the NEE gradient golden cases (cornell8, tri,
+     glassy) and at config 7's two shapes; its residual words in the
+     sorted frame the raster frame's in lane order; its words against the
+     plain version's under lane parity on the golden cases and at
+     512x512 / 1 / 4.
 
 Lane tolerance of the forward (tests/test_pallas.py): >= 99.5% of lanes
 with equal rng words, >= 99% of color values isclose at rtol = atol =
@@ -136,20 +155,21 @@ of lanes with a differing rng, and radiance within 1e-4 + 1e-3 |ref| on
 all but 0.5% of the others.  Probe: the winner equal on >= 99.95% of lanes
 and t within 1e-6 relative where it is.
 
-Gradient tolerance of the NEE backward (tests/test_pallas_nee_vjp.py):
-loss rtol 1e-5 and, per SceneParams field, max|a - b| / max|b| below 5e-3;
-ray cotangents per lane, off on at most 0.5% of lanes.  The dual-query
-route: rtol 5e-4, atol 5e-6 (tests/test_grad.py).
+Gradient tolerance of the NEE backward (tests/test_pallas_nee_vjp.py), in
+both modes and for the residual mode against the replay mode: loss rtol
+1e-5 and, per SceneParams field, max|a - b| / max|b| below 5e-3; ray
+cotangents per lane, off on at most 0.5% of lanes.  The dual-query route:
+rtol 5e-4, atol 5e-6 (tests/test_grad.py).
 
 The line before the last is a JSON object of the kernels with their
 launches on the main paths (phases 5, 9, 14, 19, 23, and 18's dual-query
 route), their times, their plain versions' and their bounds at each path's
 shape (the forward and the NEE kernel at 800x600 / 15 bounces / 1 spp, the
 backward at 512x512 / 64 spp / 8 bounces, the probe at 800x600 on the
-config-4 scene, the NEE backward at 512x512 / 1 / 4 on config 7's scene,
-the two folds at 1920x1088 on it, the splitting kernel at 800x600 / 15 / 1
-on config 3's glass scene); the last line is
-{"ok": true, "device": {...}}.
+config-4 scene, the NEE kernel's recording instance and the NEE backward
+in both modes at 512x512 / 1 / 4 on config 7's scene, the two folds at
+1920x1088 on it, the splitting kernel at 800x600 / 15 / 1 on config 3's
+glass scene); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -967,41 +987,78 @@ def nee_grad_cases(dev):
         ("glassy", SC.glassy_scene(dev), origin, 96, 64, 6, 2),
         ("zero_light", SC.zero_light_scene(dev), ref, 96, 64, 4, 2),
         ("big1000", SC.big_scene(dev, 1000), cam4, 64, 64, 4, 2),
+        # Cotangent tiles (258 kB) above the card's opt-in shared memory:
+        # the residual mode's global atomics.
+        ("big4000", SC.big_scene(dev, 4000), cam4, 64, 64, 4, 2),
         # 1943 pixels: a ragged last block.
         ("cornell8_ragged", SC.cornell_scene(dev), ref, 67, 29, 3, 1),
         ("glassy_b15", SC.glassy_scene(dev), origin, 48, 32, 15, 1),
     ]
 
 
+@contextlib.contextmanager
+def nv_settings(**settings):
+    """Module constants of `ops/nee_vjp.py` set for the block
+    (RESIDUAL_MAX_BYTES=0: the replay mode)."""
+    saved = {k: getattr(NV, k) for k in settings}
+    for k, v in settings.items():
+        setattr(NV, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(NV, k, v)
+
+
+# The residual mode's cotangent tiles in shared memory wherever they fit
+# (RESIDUAL_TILE_MAX_BYTES above the card's opt-in limit; the launch takes
+# them only within it) and in device memory.
+TILE_PLACEMENTS = {"shared": {"RESIDUAL_TILE_MAX_BYTES": 1 << 30},
+                   "device": {"RESIDUAL_TILE_MAX_BYTES": 0}}
+# Phase 20's table sizes for the two placements: 1000, 1600 and 3400
+# spheres, 64.7, 103.4 and 219.6 kB of tiles, at most 3, 2 and 1 resident
+# blocks per SM of an H100 (228 KB) with the tiles.
+TILE_SWEEP_SPHERES = (1000, 1600, 3400)
+
+
 def nee_backward_vs_plain(dev) -> dict:
     """Phase 16: on every case, `loss_and_grad(backend="cuda", light_idx)`
-    against backend="torch"; the backward kernel in raster and in sorted
-    order against the plain backward (`backward_reference`, autograd of the
-    plain trace, the kernel's table cotangents mapped to the scene's leaves
-    by `table_grads_to_leaves`); the Function's forward against the NEE
-    kernel and the sorted frame's against the raster one, bit for bit.  The
-    kernel refuses 17 bounces."""
-    cases, max_abs = [], 0.0
+    in the residual mode (the default) and in the replay mode (the byte
+    budget set to 0) against backend="torch"; the backward kernel in raster
+    and in sorted order, in both modes, against the plain backward
+    (`backward_reference`, autograd of the plain trace, the kernel's table
+    cotangents mapped to the scene's leaves by `table_grads_to_leaves`), and
+    the residual mode against the replay mode; the Function's forward
+    against the NEE kernel and the sorted frame's against the raster one,
+    bit for bit.  The kernel refuses 17 bounces."""
+    cases, max_abs, resid_max_abs = [], 0.0, 0.0
     for label, scene, cam, w, h, bounces, spp in nee_grad_cases(dev):
         li, kinds = NE.scene_light_indices(scene), _present_kinds(scene)
         glossy, diel = 1 in kinds, 2 in kinds
         tied = TIED_FIELDS.get(label, ())
         rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), len(cases) + 200, dev)
         params, target = G.scene_to_params(scene), torch.full((h, w, 3), 0.2, device=dev)
-        before = NV.LAUNCHES
-        loss_c, g_c = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
-                                      estimator="physical", backend="cuda", light_idx=li)
-        if NV.LAUNCHES != before + 1:
-            raise AssertionError(f"{label}: loss_and_grad(cuda) did not launch the backward kernel once")
         with plain_sphere_fold():
             loss_t, g_t = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
                                           estimator="physical", backend="torch")
-        rel = abs(loss_c.item() - loss_t.item()) / abs(loss_t.item())
-        if rel > LOSS_RTOL:
-            raise AssertionError(f"{label}: loss {loss_c.item()} vs {loss_t.item()}")
-        rec = {"case": f"{label} {w}x{h} b{bounces} spp{spp}", "loss_rel_err": rel,
-               "loss_and_grad": field_errors(label, g_c._asdict(), g_t._asdict(),
-                                             min_nonzero=3 if label == "zero_light" else 8, tied=tied)}
+        rec = {"case": f"{label} {w}x{h} b{bounces} spp{spp}"}
+        for mode, budget in (("residual", NV.RESIDUAL_MAX_BYTES), ("replay", 0)):
+            before = (NV.LAUNCHES, NV.RESIDUAL_LAUNCHES, NE.RECORD_LAUNCHES)
+            with nv_settings(RESIDUAL_MAX_BYTES=budget):
+                loss_c, g_c = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces,
+                                              spp=spp, estimator="physical", backend="cuda", light_idx=li)
+            resid = int(mode == "residual")
+            if (NV.LAUNCHES, NV.RESIDUAL_LAUNCHES, NE.RECORD_LAUNCHES) != (
+                    before[0] + 1, before[1] + resid, before[2] + resid):
+                raise AssertionError(f"{label}: loss_and_grad(cuda) in the {mode} mode did not launch "
+                                     f"its forward and backward once")
+            rel = abs(loss_c.item() - loss_t.item()) / abs(loss_t.item())
+            if rel > LOSS_RTOL:
+                raise AssertionError(f"{label} {mode}: loss {loss_c.item()} vs {loss_t.item()}")
+            rec[f"loss_and_grad_{mode}"] = {
+                "loss_rel_err": rel,
+                **field_errors(f"{label} {mode}", g_c._asdict(), g_t._asdict(),
+                               min_nonzero=3 if label == "zero_light" else 8, tied=tied)}
 
         wts = torch.as_tensor(np.random.default_rng(len(cases)).normal(size=(h, w, 3)).astype(np.float32),
                               device=dev)
@@ -1012,14 +1069,26 @@ def nee_backward_vs_plain(dev) -> dict:
         order = NE._presort_order(t0)
         for frame, extra in (("raster", {}), ("sorted", {"order": order, "primary": (t0, prim0)})):
             got = NV.launch_nee_backward(tables, rays, rng, wts, bounces, spp, glossy, diel, **extra)
+            words = NE.launch_nee(tables, rays, rng, bounces, spp, glossy, diel, record=True, **extra)[2]
+            resid = NV.launch_nee_backward(tables, rays, rng, wts, bounces, spp, glossy, diel,
+                                           words=words, **extra)
             leaf = NV.table_grads_to_leaves(scene, li, *got[:3])
+            leaf_r = NV.table_grads_to_leaves(scene, li, *resid[:3])
             rec[frame] = {
                 "vs_backward_reference": field_errors(f"{label} {frame}", leaf, want, tied=tied),
                 "d_origin": lane_robust_error(f"{label} {frame} d_origin", got[3], w_o),
                 "d_direction": lane_robust_error(f"{label} {frame} d_direction", got[4], w_d),
+                "residual_vs_backward_reference": field_errors(f"{label} {frame} residual", leaf_r, want,
+                                                               tied=tied),
+                "residual_vs_replay": field_errors(f"{label} {frame} residual vs replay", leaf_r, leaf),
+                "residual_d_origin": lane_robust_error(f"{label} {frame} residual d_origin", resid[3], w_o),
+                "residual_d_direction": lane_robust_error(f"{label} {frame} residual d_direction",
+                                                          resid[4], w_d),
             }
             max_abs = max(max_abs, *((leaf[f] - x).abs().max().item() for f, x in want.items()
                                      if x.numel() and f not in tied))
+            resid_max_abs = max(resid_max_abs, *((leaf_r[f] - x).abs().max().item()
+                                                 for f, x in want.items() if x.numel() and f not in tied))
         outs = [NV.trace_physical_nee_diff(scene, rays, rng, bounces, spp, li, kinds, sorted_lanes=s)
                 for s in (False, True)]
         if not (torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])):
@@ -1038,7 +1107,7 @@ def nee_backward_vs_plain(dev) -> dict:
         raise AssertionError("the NEE backward kernel took 17 bounces")
     if NV.LAUNCHES != before:
         raise AssertionError("a refused NEE backward launch was counted")
-    return {"max_abs_err": max_abs, "cases": cases}
+    return {"max_abs_err": max_abs, "residual_max_abs_err": resid_max_abs, "cases": cases}
 
 
 def nee_backward_vs_golden(dev) -> list:
@@ -1213,7 +1282,10 @@ def physical_training_path(dev) -> dict:
     """Phase 19, counted from 0: SGD through `loss_and_grad(estimator=
     "physical", light_idx=...)` on suite config 7's scene and camera towards
     a target rendered with the emitters' illuminance halved, 5 steps at
-    512x512 / 1 spp / 4 bounces and 2 at 1920x1088 / 8 / 4."""
+    512x512 / 1 spp / 4 bounces and 2 at 1920x1088 / 8 / 4, every one in
+    the residual mode (the recording forward and the fold-free backward);
+    then one more step at 512x512 / 1 / 4 with the byte budget at 0, the
+    replay mode that a gradient above the budget takes."""
     scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
     li, kinds = NE.scene_light_indices(scene), _present_kinds(scene)
     params0 = G.scene_to_params(scene)
@@ -1227,20 +1299,26 @@ def physical_training_path(dev) -> dict:
     torch.cuda.synchronize()
 
     out = {}
-    NV.LAUNCHES = MK.LAUNCHES = V.LAUNCHES = 0
+    NV.LAUNCHES = NV.RESIDUAL_LAUNCHES = NE.RECORD_LAUNCHES = MK.LAUNCHES = V.LAUNCHES = 0
     SF.LAUNCHES.update(nearest_fold=0, dual_fold=0)
     NE.LAUNCHES.update(nee_megakernel=0, primary_probe=0)
-    for (w, h, spp, bounces, steps), (rng, target) in zip(CONFIG7, targets):
-        label = f"{w}x{h}_spp{spp}_b{bounces}"
+    runs = [(shape, data, NV.RESIDUAL_MAX_BYTES) for shape, data in zip(CONFIG7, targets)]
+    runs.append(((*CONFIG7[0][:4], 1), targets[0], 0))
+    for (w, h, spp, bounces, steps), (rng, target), budget in runs:
+        resid = int(budget > 0)
+        label = f"{w}x{h}_spp{spp}_b{bounces}" + ("" if resid else "_replay_mode")
         sort = NV.sorted_default(scene)
         params, losses, rates = params0, [], None
         t0 = time.perf_counter()
         for step in range(steps):
-            before = (NE.LAUNCHES["nee_megakernel"], NE.LAUNCHES["primary_probe"], NV.LAUNCHES)
-            loss, grads = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
-                                          estimator="physical", light_idx=li, kinds=kinds)
-            after = (NE.LAUNCHES["nee_megakernel"], NE.LAUNCHES["primary_probe"], NV.LAUNCHES)
-            if tuple(a - b for a, b in zip(after, before)) != (1, int(sort), 1):
+            counts = lambda: (NE.LAUNCHES["nee_megakernel"], NE.RECORD_LAUNCHES,  # noqa: E731
+                              NE.LAUNCHES["primary_probe"], NV.LAUNCHES, NV.RESIDUAL_LAUNCHES)
+            before = counts()
+            with nv_settings(RESIDUAL_MAX_BYTES=budget):
+                loss, grads = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces,
+                                              spp=spp, estimator="physical", light_idx=li, kinds=kinds)
+            after = counts()
+            if tuple(a - b for a, b in zip(after, before)) != (1, resid, int(sort), 1, resid):
                 raise AssertionError(f"{label} step {step}: launches {before} -> {after}")
             bad = [f for f, g in grads._asdict().items() if not torch.isfinite(g).all()]
             if bad or not torch.isfinite(loss):
@@ -1257,15 +1335,21 @@ def physical_training_path(dev) -> dict:
         out[label] = {"losses": losses, "rates": rates, "sorted_frame": sort,
                       "wall_s": time.perf_counter() - t0}
     out["launches"] = {"nee_megakernel": NE.LAUNCHES["nee_megakernel"],
-                       "primary_probe": NE.LAUNCHES["primary_probe"], "nee_megakernel_vjp": NV.LAUNCHES,
+                       "nee_record": NE.RECORD_LAUNCHES,
+                       "primary_probe": NE.LAUNCHES["primary_probe"],
+                       "nee_megakernel_vjp": NV.LAUNCHES - NV.RESIDUAL_LAUNCHES,
+                       "nee_megakernel_vjp_residual": NV.RESIDUAL_LAUNCHES,
                        **SF.LAUNCHES, "megakernel": MK.LAUNCHES, "megakernel_vjp": V.LAUNCHES}
     if any(out["launches"][k] for k in ("nearest_fold", "dual_fold", "megakernel", "megakernel_vjp")):
         raise AssertionError(f"physical training path launched other kernels: {out['launches']}")
+    # The losses taken without a gradient run the production instance.
+    if out["launches"]["nee_record"] != sum(r[0][4] for r in runs if r[2]):
+        raise AssertionError(f"a forward without a gradient recorded residuals: {out['launches']}")
     return out
 
 
 def nee_bwd_bound(tables, live, pixels, sorted_frame) -> dict:
-    """The backward's least time: the forward's operations (without the
+    """The replay mode's least time: the forward's operations (without the
     primary fold in the sorted frame, which reads the probe's), the reverse
     per live bounce, and its bytes."""
     ops = nee_ops(tables, live, pixels) + live * NEE_REVERSE_OPS
@@ -1275,60 +1359,147 @@ def nee_bwd_bound(tables, live, pixels, sorted_frame) -> dict:
     return {**bound(nbytes + 2 * nee_table_bytes(tables), ops), "ops": ops}
 
 
+def nee_resid_bound(tables, live, words, pixels, sorted_frame) -> dict:
+    """The residual mode's least time: per live bounce the reverse and the
+    replay's least bounce work (NEE_BOUNCE_OPS; no fold, the primary one
+    included); its bytes with the `words` residual words it must read (4 B
+    each) and, in the sorted frame, the lane order (4 B per pixel; the
+    probe's t0 and prim0 are not read)."""
+    ops = live * (NEE_REVERSE_OPS + NEE_BOUNCE_OPS)
+    nbytes = pixels * (NEE_BWD_BYTES_PER_PIXEL + 4 * sorted_frame) + 4 * words
+    return {**bound(nbytes + 2 * nee_table_bytes(tables), ops), "ops": ops}
+
+
+def nee_record_bound(tables, live, words, pixels, sorted_frame) -> dict:
+    """The recording forward's least time: the NEE kernel's operations
+    (without the primary fold in the sorted frame) and bytes, with the
+    `words` residual words it writes (4 B each) and, in the sorted frame,
+    the lane order and the probe's (t0, prim0) it reads."""
+    ops = nee_ops(tables, live, pixels)
+    if sorted_frame:
+        ops -= pixels * sum(n * f for n, f in zip(tables.counts, PRIMARY_FOLD_OPS))
+    nbytes = pixels * (NEE_BYTES_PER_PIXEL + SORTED_BYTES_PER_PIXEL * sorted_frame) + 4 * words
+    return {**bound(nbytes + nee_table_bytes(tables), ops), "ops": ops}
+
+
+def residual_tile_sweep(dev) -> dict:
+    """Phase 20's tile placements: the residual backward in the sorted
+    frame at config 7's two shapes on TILE_SWEEP_SPHERES spheres, its
+    cotangent tiles in shared and in device memory (CUDA events, median of
+    n), the two results held against each other per field and per lane."""
+    cam, out = Camera.create(*CAM4, 90.0, dev), {}
+    for n in TILE_SWEEP_SPHERES:
+        scene = SC.big_scene(dev, n)
+        li = NE.scene_light_indices(scene)
+        tables = NE.nee_scene_tables(scene, li)
+        rec = {"tile_bytes": 4 * (tables.fold.numel() + tables.payload.numel() + tables.lights.numel()),
+               "tiles_in_smem_by_default": NV.residual_tiles_in_smem(tables)}
+        for w, h, spp, bounces, _ in CONFIG7:
+            rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 5, dev)
+            wts = torch.as_tensor(np.random.default_rng(n).normal(size=(h, w, 3)).astype(np.float32),
+                                  device=dev)
+            t0, prim0 = NE.launch_probe(tables, rays)
+            extra = {"order": NE._presort_order(t0), "primary": (t0, prim0)}
+            words = NE.launch_nee(tables, rays, rng, bounces, spp, False, False, record=True, **extra)[2]
+            shape, got = f"{w}x{h}_spp{spp}_b{bounces}", {}
+            for placement, settings in TILE_PLACEMENTS.items():
+                with nv_settings(**settings):
+                    run = lambda: NV.launch_nee_backward(  # noqa: E731
+                        tables, rays, rng, wts, bounces, spp, False, False, words=words, **extra)
+                    got[placement] = run()
+                    rec[f"{shape}_{placement}"] = cuda_times(run, 5 if w > 512 else 20)
+            label = f"tile sweep {n} spheres {shape}"
+            leaf = {k: NV.table_grads_to_leaves(scene, li, *g[:3]) for k, g in got.items()}
+            rec[f"{shape}_shared_vs_device"] = {
+                **field_errors(label, leaf["shared"], leaf["device"], min_nonzero=4),
+                "d_origin": lane_robust_error(f"{label} d_origin", got["shared"][3], got["device"][3]),
+                "d_direction": lane_robust_error(f"{label} d_direction", got["shared"][4], got["device"][4])}
+            del words, got
+        out[f"{n}_spheres"] = rec
+    return out
+
+
 def physical_training_times(dev, smi) -> tuple:
-    """Phase 20, on CUDA events: at config 7's two shapes, the backward and
-    forward kernels in raster and sorted order and the whole SGD step in
-    both frames (suite rays/s: W H spp b 2 per step, suite.py:477), with
-    each kernel's bound; the backward kernel held against its plain version
-    at both shapes, and the two timed at 512x512 / 1 / 4; the two folds at
-    1920x1088 x 1000 spheres.  Returns the record and the kernels-line
-    entries."""
+    """Phase 20, on CUDA events: at config 7's two shapes, the backward
+    kernel in both modes and the forward kernel's production and recording
+    instances, in raster and sorted order, with each one's bound; the whole
+    SGD step in both frames in the residual mode and in the sorted frame in
+    the replay mode (suite rays/s: W H spp b 2 per step, suite.py:477); the
+    residual mode's tile placements (`residual_tile_sweep`); the backward
+    kernel in both modes, the residual one with either tile placement,
+    held against its plain versions at both shapes, and the three timed at
+    512x512 / 1 / 4; the two folds at 1920x1088 x 1000 spheres.  Returns the
+    record and the kernels-line entries."""
     scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
     li, kinds = NE.scene_light_indices(scene), _present_kinds(scene)
     tables, params = NE.nee_scene_tables(scene, li), G.scene_to_params(scene)
-    out = {"nvidia_smi": smi}
+    out = {"nvidia_smi": smi, "residual_tiles_in_smem": NV.residual_tiles_in_smem(tables)}
     for w, h, spp, bounces, _ in CONFIG7:
         rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 1, dev)
         wts = torch.as_tensor(np.random.default_rng(w).normal(size=(h, w, 3)).astype(np.float32), device=dev)
         live = int(NE.launch_nee(tables, rays, rng, bounces, spp, False, False, telemetry=True)[2].sum())
         t0, prim0 = NE.launch_probe(tables, rays)
         order, primary = NE._presort_order(t0), (t0, prim0)
-        rec = {"live_share": live / (w * h * spp * bounces)}
+        reps = 5 if w > 512 else 20
+        rec = {"live_share": live / (w * h * spp * bounces),
+               "residual_bytes": 4 * w * h * spp * bounces}
         for frame, extra in (("raster", {}), ("sorted", {"order": order, "primary": primary})):
+            sort = frame == "sorted"
+            words = NE.launch_nee(tables, rays, rng, bounces, spp, False, False, record=True, **extra)[2]
+            nwords = int(NE.written_words(words, spp, bounces).sum())
             rec[f"backward_{frame}"] = {
                 **cuda_times(lambda: NV.launch_nee_backward(tables, rays, rng, wts, bounces, spp, False, False,
                                                             **extra), 5 if w > 512 else 20),
-                **nee_bwd_bound(tables, live, w * h, frame == "sorted")}
+                **nee_bwd_bound(tables, live, w * h, sort)}
+            rec[f"backward_residual_{frame}"] = {
+                **cuda_times(lambda: NV.launch_nee_backward(
+                    tables, rays, rng, wts, bounces, spp, False, False, words=words, **extra), reps),
+                **nee_resid_bound(tables, live, nwords, w * h, sort), "words_read": nwords,
+                "tiles_in_smem": NV.residual_tiles_in_smem(tables)}
             rec[f"forward_{frame}"] = cuda_times(
-                lambda: NE.launch_nee(tables, rays, rng, bounces, spp, False, False, **extra), 5 if w > 512 else 20)
+                lambda: NE.launch_nee(tables, rays, rng, bounces, spp, False, False, **extra), reps)
+            rec[f"forward_record_{frame}"] = {
+                **cuda_times(lambda: NE.launch_nee(tables, rays, rng, bounces, spp, False, False, record=True,
+                                                   **extra), reps),
+                **nee_record_bound(tables, live, nwords, w * h, sort), "words_written": nwords}
+            del words
         rec["probe_and_order"] = cuda_times(lambda: NE._presort_order(NE.launch_probe(tables, rays)[0]), 10)
         target = torch.zeros((h, w, 3), device=dev)
         gate = NV.sorted_default
         try:
-            for frame in ("raster", "sorted"):
-                NV.sorted_default = lambda _scene, frame=frame: frame == "sorted"
-                step = cuda_times(lambda: sgd_update(params, G.loss_and_grad(
-                    params, scene, cam, target, rng, num_bounces=bounces, spp=spp, estimator="physical",
-                    light_idx=li, kinds=kinds)[1], LR_FIELDS), 3 if w > 512 else 10)
+            for frame, budget in (("raster", NV.RESIDUAL_MAX_BYTES), ("sorted", NV.RESIDUAL_MAX_BYTES),
+                                  ("sorted_replay_mode", 0)):
+                NV.sorted_default = lambda _scene, frame=frame: frame.startswith("sorted")
+                with nv_settings(RESIDUAL_MAX_BYTES=budget):
+                    step = cuda_times(lambda: sgd_update(params, G.loss_and_grad(
+                        params, scene, cam, target, rng, num_bounces=bounces, spp=spp, estimator="physical",
+                        light_idx=li, kinds=kinds)[1], LR_FIELDS), 3 if w > 512 else 30)
                 rec[f"sgd_step_{frame}"] = {**step, "suite_rays_per_s": w * h * spp * bounces * 2
                                             / (step["median_ms"] / 1e3)}
         finally:
             NV.sorted_default = gate
         rec["sorted_default"] = NV.sorted_default(scene)
+        rec["residual_default"] = NV.records_residuals(w * h, spp, bounces, tables.num_lights)
         out[f"config7_{w}x{h}_spp{spp}_b{bounces}"] = rec
+
+    out["residual_tile_placement"] = residual_tile_sweep(dev)
 
     # The backward kernel held against its plain version at the main path's
     # shapes: 512x512 / 1 / 4 whole, in both frames (the plain over row
     # tiles, timed once), and a full-width strip of 1920x1088 / 8 / 4, the
     # kernel launched on the whole image with the cotangent zero outside
     # the strip.
-    def plain_tiles(rays, rng, wts, spp, rows):
+    def plain_tiles(rays, rng, wts, spp, rows, words=None):
+        """The plain backward over tiles of `rows` rows: autograd of the
+        plain trace, or with `words` (raster frame) of the word replay."""
         leaf, d_o, d_d = None, [], []
+        width = rays.origin.shape[1]
         for r in range(0, rays.origin.shape[0], rows):
+            tile_words = None if words is None else words[:, r * width:(r + rows) * width]
             with plain_sphere_fold():
                 g, g_o, g_d = NV.backward_reference(
                     scene, Rays(origin=rays.origin[r:r + rows], direction=rays.direction[r:r + rows]),
-                    rng[r:r + rows], wts[r:r + rows], 4, spp, kinds)
+                    rng[r:r + rows], wts[r:r + rows], 4, spp, kinds, words=tile_words)
             leaf = g if leaf is None else {f: leaf[f] + g[f] for f in g}
             d_o.append(g_o)
             d_d.append(g_d)
@@ -1342,26 +1513,55 @@ def physical_training_times(dev, smi) -> tuple:
                 "max_abs_err": max((leaf[f] - x).abs().max().item() for f, x in want[0].items()
                                    if x.numel())}
 
+    def timed_once(fn):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return result, {"n": 1, "median_ms": start.elapsed_time(end)}
+
     w, h, spp = 512, 512, 1
     rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 2, dev)
     wts = torch.as_tensor(np.random.default_rng(h).normal(size=(h, w, 3)).astype(np.float32), device=dev)
     live = int(NE.launch_nee(tables, rays, rng, 4, spp, False, False, telemetry=True)[2].sum())
     t0, prim0 = NE.launch_probe(tables, rays)
     frames = {"raster": {}, "sorted": {"order": NE._presort_order(t0), "primary": (t0, prim0)}}
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = plain_tiles(rays, rng, wts, spp, 32)
-    end.record()
-    torch.cuda.synchronize()
+    words = {f: NE.launch_nee(tables, rays, rng, 4, spp, False, False, record=True, **x)[2]
+             for f, x in frames.items()}
+    want, plain = timed_once(lambda: plain_tiles(rays, rng, wts, spp, 32))
+    want_words, plain_words = timed_once(lambda: plain_tiles(rays, rng, wts, spp, 32, words["raster"]))
+    with torch.no_grad():
+        plain_record = timed_once(lambda: NE.trace_physical_nee_reference(
+            scene, rays, rng, 4, spp, kinds, residuals=True))[1]
     sort = NV.sorted_default(scene)
-    rec = {"plain": {"n": 1, "median_ms": start.elapsed_time(end)}, "sorted_frame": sort,
-           **nee_bwd_bound(tables, live, w * h, sort)}
+    main = frames["sorted" if sort else "raster"]
+    nwords = int(NE.written_words(words["raster"], spp, 4).sum())
+    rec = {"plain": plain, "sorted_frame": sort, **nee_bwd_bound(tables, live, w * h, sort),
+           "residual": {"plain": plain_words, **nee_resid_bound(tables, live, nwords, w * h, sort)},
+           "record": {"plain": plain_record, **nee_record_bound(tables, live, nwords, w * h, sort)}}
     for frame, extra in frames.items():
         got = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False, False, **extra)
         rec[f"held_{frame}"] = held(f"backward {w}x{h} {frame}", got, want)
+        got_r = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False, False, words=words[frame], **extra)
+        rec["residual"][f"held_{frame}"] = held(f"residual backward {w}x{h} {frame}", got_r, want)
+        rec["residual"][f"held_{frame}_vs_word_replay"] = held(
+            f"residual backward {w}x{h} {frame} vs the plain word replay", got_r, want_words)
+        with nv_settings(**TILE_PLACEMENTS["device"]):
+            got_g = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False, False, words=words[frame],
+                                           **extra)
+        rec["residual"][f"held_{frame}_tiles_in_device_memory"] = held(
+            f"residual backward {w}x{h} {frame}, tiles in device memory", got_g, want)
+        rec["residual"][f"held_{frame}_tiles_in_device_memory_vs_word_replay"] = held(
+            f"residual backward {w}x{h} {frame}, tiles in device memory, vs the plain word replay", got_g,
+            want_words)
     rec["kernel"] = cuda_times(lambda: NV.launch_nee_backward(
-        tables, rays, rng, wts, 4, spp, False, False, **frames["sorted" if sort else "raster"]), 20)
+        tables, rays, rng, wts, 4, spp, False, False, **main), 20)
+    rec["residual"]["kernel"] = cuda_times(lambda: NV.launch_nee_backward(
+        tables, rays, rng, wts, 4, spp, False, False, words=words["sorted" if sort else "raster"], **main), 20)
+    rec["record"]["kernel"] = cuda_times(lambda: NE.launch_nee(
+        tables, rays, rng, 4, spp, False, False, record=True, **main), 20)
     out["backward_vs_plain_512x512_spp1_b4"] = rec
 
     w, h, spp, strip = 1920, 1088, 8, slice(512, 576)
@@ -1374,13 +1574,20 @@ def physical_training_times(dev, smi) -> tuple:
     t0, prim0 = NE.launch_probe(tables, rays)
     rec = {}
     for frame, extra in (("raster", {}), ("sorted", {"order": NE._presort_order(t0), "primary": (t0, prim0)})):
-        got = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False, False, **extra)
-        outside = torch.cat([got[3][:strip.start], got[3][strip.stop:], got[4][:strip.start],
-                             got[4][strip.stop:]])
-        if outside.abs().max() != 0:
-            raise AssertionError(f"strip {frame}: a ray cotangent outside the strip is not 0")
-        rec[f"held_{frame}"] = held(f"backward {w}x{h} strip {frame}", got, want, strip)
-    out[f"backward_vs_plain_{w}x{h}_spp{spp}_b4_rows{strip.start}_{strip.stop}"] = rec
+        words = NE.launch_nee(tables, rays, rng, 4, spp, False, False, record=True, **extra)[2]
+        for mode, kw, suffix, settings in (("", {}, "", {}), ("residual_", {"words": words}, "", {}),
+                                           ("residual_", {"words": words}, "_tiles_in_device_memory",
+                                            TILE_PLACEMENTS["device"])):
+            with nv_settings(**settings):
+                got = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False, False, **extra, **kw)
+            outside = torch.cat([got[3][:strip.start], got[3][strip.stop:], got[4][:strip.start],
+                                 got[4][strip.stop:]])
+            if outside.abs().max() != 0:
+                raise AssertionError(f"strip {mode}{frame}{suffix}: a ray cotangent outside the strip is not 0")
+            rec[f"{mode}held_{frame}{suffix}"] = held(f"{mode}backward {w}x{h} strip {frame}{suffix}", got,
+                                                      want, strip)
+        del words
+    out[f"backward_vs_plain_{w}x{h}_spp{spp}_b4_rows{strip.start}_{strip.stop}"] = strip_rec = rec
 
     # The two folds at 1920x1088 x 1000 spheres: the nearest fold on the
     # camera rays (the dual-query trace's primary hit), the dual fold at the
@@ -1415,10 +1622,83 @@ def physical_training_times(dev, smi) -> tuple:
                                "max_abs_err": max(r["max_abs_err"] for v in out.values()
                                                   if isinstance(v, dict)
                                                   for k, r in v.items() if k.startswith("held_"))},
+        "nee_megakernel_vjp_residual": {
+            "ms": main["residual"]["kernel"]["median_ms"], "plain_ms": main["residual"]["plain"]["median_ms"],
+            "bound_ms": main["residual"]["bound_ms"], "bound_by": main["residual"]["bound_by"],
+            "max_abs_err": max([r["max_abs_err"] for k, r in main["residual"].items() if k.startswith("held_")]
+                               + [r["max_abs_err"] for k, r in strip_rec.items()
+                                  if k.startswith("residual_held_")])},
+        "nee_megakernel_record": {
+            "ms": main["record"]["kernel"]["median_ms"], "plain_ms": main["record"]["plain"]["median_ms"],
+            "bound_ms": main["record"]["bound_ms"], "bound_by": main["record"]["bound_by"]},
         "dual_fold": {"ms": dual["kernel"]["median_ms"], "plain_ms": dual["plain"]["median_ms"],
                       "bound_ms": dual["bound_ms"], "bound_by": dual["bound_by"]},
     }
     return out, entries
+
+
+def nee_residuals(dev) -> dict:
+    """Phase 25: the NEE kernel's recording instance (the gradient's
+    forward) against its production instance, radiance and rng bit for bit,
+    in raster and sorted order, on the NEE gradient golden cases (cornell8,
+    tri, glassy: `tests/data/torch_port_nee_grad_golden.npz`'s inputs) and
+    at suite config 7's two shapes; its words in the sorted frame are the
+    raster frame's in lane order; its words against the plain version's
+    (`trace_physical_nee_reference(residuals=True)`) on every word it
+    writes, under lane parity (a lane counts as off when its rng or any of
+    its words differs), on the golden cases and at 512x512 / 1 / 4."""
+    with np.load(NEE_GRAD_GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    inputs = []
+    for case in sorted({k.split("__")[0] for k in golden}):
+        arr = {k[len(case) + 2:]: v for k, v in golden.items() if k.startswith(f"{case}__")}
+        scene = C.scene_from_numpy({k[len("scene__"):]: v for k, v in arr.items() if k.startswith("scene__")},
+                                   dev)
+        spp, bounces = arr["config"].tolist()
+        rays = Rays(origin=torch.as_tensor(arr["origin"], device=dev),
+                    direction=torch.as_tensor(arr["direction"], device=dev))
+        inputs.append((f"golden {case} 32x16 b{bounces} spp{spp}", scene, rays,
+                       C.rng_from_numpy(arr["rng_in"], dev), bounces, spp, True))
+    scene7, cam7 = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+    for w, h, spp, bounces, _ in CONFIG7:
+        inputs.append((f"config7 {w}x{h} b{bounces} spp{spp}", scene7, primary_rays(cam7, w, h),
+                       gen_seeds((h, w), 4, dev), bounces, spp, w == 512))
+    cases, max_abs = [], 0.0
+    for label, scene, rays, rng, bounces, spp, vs_plain in inputs:
+        kinds = _present_kinds(scene)
+        glossy, diel = 1 in kinds, 2 in kinds
+        tables = NE.nee_scene_tables(scene)
+        t0, prim0 = NE.launch_probe(tables, rays)
+        order = NE._presort_order(t0)
+        words, outs = {}, {}
+        for frame, extra in (("raster", {}), ("sorted", {"order": order, "primary": (t0, prim0)})):
+            prod = NE.launch_nee(tables, rays, rng, bounces, spp, glossy, diel, **extra)
+            *outs[frame], words[frame] = NE.launch_nee(tables, rays, rng, bounces, spp, glossy, diel,
+                                                       record=True, **extra)
+            if not (torch.equal(prod[0], outs[frame][0]) and torch.equal(prod[1], outs[frame][1])):
+                raise AssertionError(f"{label} {frame}: the recording instance changed radiance or rng")
+            del prod
+        rad, rng_out = outs["raster"]
+        lanes = order.long()
+        written = NE.written_words(words["raster"], spp, bounces)[:, lanes]
+        if not torch.equal(torch.where(written, words["raster"][:, lanes], 0),
+                           torch.where(written, words["sorted"], 0)):
+            raise AssertionError(f"{label}: the sorted frame's words are not the raster frame's in lane order")
+        rec = {"case": label, "bit_identical_to_production": True, "words_written": int(written.sum())}
+        if vs_plain:
+            with plain_sphere_fold(), torch.no_grad():
+                want = NE.trace_physical_nee_reference(scene, rays, rng, bounces, spp, kinds, residuals=True)
+            rec.update(lane_parity(label, (rad, rng_out), want[:2]))
+            plain_written = NE.written_words(want[2], spp, bounces)
+            off = ((words["raster"] != want[2]) & plain_written).any(0)
+            off |= ~(rng_out == want[1]).all(-1).reshape(-1)
+            rec["lanes_off"] = off.double().mean().item()
+            if rec["lanes_off"] > LANE_MAX_DIVERGED:
+                raise AssertionError(f"{label}: words or rng off on {rec['lanes_off']:.4%} of lanes")
+            max_abs = max(max_abs, rec["max_abs_err"])
+        cases.append(rec)
+        del words
+    return {"max_abs_err": max_abs, "cases": cases}
 
 
 # The wavefront integrator and deterministic splitting (phases 21-24).
@@ -1902,6 +2182,10 @@ def main() -> int:
     split_record, split_entries = split_times(dev, smi)
     phase("split_times", **split_record)
 
+    # 25: the NEE gradient's residual mode, its recording forward.
+    residuals = nee_residuals(dev)
+    phase("nee_residuals", **residuals)
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -1945,6 +2229,15 @@ def main() -> int:
         **nee_entries["primary_probe"],
         "library_ms": None,
     }, {
+        "name": "nee_megakernel_record",
+        "route": "cuda",
+        "source": "haskell_path_tracer_torch/csrc/nee_megakernel.cu",
+        "replaces": "haskell_path_tracer_tpu/ops/pallas_nee.py:431",
+        "launches": physical_training["launches"]["nee_record"],
+        "max_abs_err": residuals["max_abs_err"],
+        **grad_entries["nee_megakernel_record"],
+        "library_ms": None,
+    }, {
         "name": "nee_megakernel_vjp",
         "route": "cuda",
         "source": "haskell_path_tracer_torch/csrc/nee_megakernel_vjp.cu",
@@ -1952,6 +2245,16 @@ def main() -> int:
         "launches": physical_training["launches"]["nee_megakernel_vjp"],
         **grad_entries["nee_megakernel_vjp"],
         "max_abs_err": max(nee_bwd["max_abs_err"], grad_entries["nee_megakernel_vjp"]["max_abs_err"]),
+        "library_ms": None,
+    }, {
+        "name": "nee_megakernel_vjp_residual",
+        "route": "cuda",
+        "source": "haskell_path_tracer_torch/csrc/nee_megakernel_vjp.cu",
+        "replaces": "haskell_path_tracer_tpu/ops/pallas_nee_vjp.py:445",
+        "launches": physical_training["launches"]["nee_megakernel_vjp_residual"],
+        **grad_entries["nee_megakernel_vjp_residual"],
+        "max_abs_err": max(nee_bwd["residual_max_abs_err"],
+                           grad_entries["nee_megakernel_vjp_residual"]["max_abs_err"]),
         "library_ms": None,
     }, {
         "name": "dual_fold",

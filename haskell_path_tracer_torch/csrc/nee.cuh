@@ -58,14 +58,60 @@ HPT_HD void cross3(const float* a, const float* b, float* c) {
   c[2] = a[0] * b[1] - a[1] * b[0];
 }
 
+// The raw distances of one row along the ray (o, d), with no acceptance
+// test: the folds' expressions, which the NEE backward (nee_vjp.cuh:
+// winner_t) shares so that the distance it recomputes for a fold's winner
+// is the fold's own bit for bit.
+
+// A sphere row g = [c, r^2]: the near root tca - sqrt(max(h, 1e-12)), with
+// l = c - o, ll = l.l and the discriminant h = r^2 - (ll - tca^2).
+HPT_HD float sphere_root(const float* g, const float* o, const float* d, float* l,
+                         float& ll, float& h) {
+  l[0] = g[0] - o[0];
+  l[1] = g[1] - o[1];
+  l[2] = g[2] - o[2];
+  ll = l[0] * l[0] + l[1] * l[1] + l[2] * l[2];
+  float tca = l[0] * d[0] + l[1] * d[1] + l[2] * d[2];
+  h = g[3] - (ll - tca * tca);
+  float thc = sqrtf(fmaxf(h, 1e-12f));
+  return tca - thc;
+}
+
+// A plane row [p, n]: (p - o).n / d.n, a zero denominator displaced.
+HPT_HD float plane_t(const float* g, const float* o, const float* d, float& denom) {
+  denom = d[0] * g[3] + d[1] * g[4] + d[2] * g[5];
+  float num = (g[0] - o[0]) * g[3] + (g[1] - o[1]) * g[4] + (g[2] - o[2]) * g[5];
+  return num / (denom == 0.0f ? kPlaneDenomEps * 0.5f : denom);
+}
+
+// Möller–Trumbore on a row [v0(3), e1(3), e2(3), |e1 x e2|]; tv = origin - v0.
+struct Barycentric {
+  float det, u, v, t;
+};
+
+HPT_HD Barycentric moller_trumbore(const float* g, const float* tv, const float* d) {
+  const float* e1 = g + 3;
+  const float* e2 = g + 6;
+  float pv[3];
+  cross3(d, e2, pv);
+  Barycentric r;
+  r.det = e1[0] * pv[0] + e1[1] * pv[1] + e1[2] * pv[2];
+  float inv_det = 1.0f / (fabsf(r.det) < 1e-30f ? 1e-30f : r.det);
+  r.u = dot3(tv, pv) * inv_det;
+  float qv[3];
+  cross3(tv, e1, qv);
+  r.v = dot3(d, qv) * inv_det;
+  r.t = dot3(e2, qv) * inv_det;
+  return r;
+}
+
 // Distances along the ray, kInfinite on a miss, accepting t >= rej
 // (ops/intersect.py's plane_distances, box_distances, triangle_distances).
 
 HPT_HD float plane_dist(const float* g, const float* o, const float* d,
                         float rej) {
-  float denom = d[0] * g[3] + d[1] * g[4] + d[2] * g[5];
-  float num = (g[0] - o[0]) * g[3] + (g[1] - o[1]) * g[4] + (g[2] - o[2]) * g[5];
-  float dist = num / (denom == 0.0f ? kPlaneDenomEps * 0.5f : denom);
+  float denom;
+  float dist = plane_t(g, o, d, denom);
   return (denom > kPlaneDenomEps || dist < rej) ? kInfinite : dist;
 }
 
@@ -80,23 +126,12 @@ HPT_HD float box_dist(const float* g, const float* o, const float* d,
   return (t_near > t_far || t_near <= 0.0f || t_near < rej) ? kInfinite : t_near;
 }
 
-// Möller–Trumbore on a row [v0(3), e1(3), e2(3), |e1 x e2|]; tv = origin - v0.
 HPT_HD float tri_dist(const float* g, const float* tv, const float* d,
                       float rej) {
-  const float* e1 = g + 3;
-  const float* e2 = g + 6;
-  float pv[3];
-  cross3(d, e2, pv);
-  float det = e1[0] * pv[0] + e1[1] * pv[1] + e1[2] * pv[2];
-  float inv_det = 1.0f / (fabsf(det) < 1e-30f ? 1e-30f : det);
-  float u = dot3(tv, pv) * inv_det;
-  float qv[3];
-  cross3(tv, e1, qv);
-  float v = dot3(d, qv) * inv_det;
-  float t = dot3(e2, qv) * inv_det;
-  bool miss = (det <= kPlaneDenomEps * g[9]) || (u < 0.0f) || (v < 0.0f) ||
-              (u + v > 1.0f) || (t < rej);
-  return miss ? kInfinite : t;
+  const Barycentric r = moller_trumbore(g, tv, d);
+  bool miss = (r.det <= kPlaneDenomEps * g[9]) || (r.u < 0.0f) || (r.v < 0.0f) ||
+              (r.u + r.v > 1.0f) || (r.t < rej);
+  return miss ? kInfinite : r.t;
 }
 
 // The nearest (t, prim) of the ray (o, d) over spheres ++ planes ++ boxes ++
@@ -110,24 +145,23 @@ template <bool SHADOW>
 HPT_HD void fold(const Scene& S, const float* o, const float* d, float eps,
                  float& best_t, int& best_p, const float* b, float t_l, int lgi,
                  bool& occ) {
+#ifdef HPT_FOLD_COUNTER
+  ++HPT_FOLD_COUNTER;  // the host harness counts the folds a function runs
+#endif
   best_t = kInfinite;
   best_p = 0;
   for (int p = 0; p < S.ns; ++p) {
     float g[4];
     load4(S.sphere(p), g);
-    float lx = g[0] - o[0], ly = g[1] - o[1], lz = g[2] - o[2];
-    float ll = lx * lx + ly * ly + lz * lz;
-    float tca = lx * d[0] + ly * d[1] + lz * d[2];
-    float h = g[3] - (ll - tca * tca);
-    float thc = sqrtf(fmaxf(h, 1e-12f));
-    float t = tca - thc;
+    float l[3], ll, h;
+    float t = sphere_root(g, o, d, l, ll, h);
     // tca >= eps is implied: t >= eps with thc > 0.
     if (h >= 0.0f && t >= eps && t < best_t) {
       best_t = t;
       best_p = p;
     }
     if (SHADOW) {
-      float tca2 = lx * b[0] + ly * b[1] + lz * b[2];
+      float tca2 = l[0] * b[0] + l[1] * b[1] + l[2] * b[2];
       float h2 = g[3] - (ll - tca2 * tca2);
       float a1 = tca2 - kEpsilon;
       float a2 = tca2 - t_l;
@@ -347,6 +381,26 @@ HPT_HD void hit_normal(const Scene& S, int prim, const float* m, const float* o,
   }
 }
 
+// The BSDF direction nd from the incoming d, the normal n and the three
+// uniforms u: the cosine-weighted hemisphere, a glossy mirror or the
+// dielectric's Fresnel choice by kind.  Returns whether it is specular.
+template <bool HAS_GLOSSY, bool HAS_DIEL>
+HPT_HD bool bsdf_sample(const float* d, const float* n, float param, float kind,
+                        const float* u, float* nd) {
+  cosine_hemisphere(n, u[0], u[1], nd);
+  bool is_spec = false;
+  if (HAS_GLOSSY && kind == 1.0f) {
+    float ia = dot3(d, n);
+    for (int i = 0; i < 3; ++i) nd[i] = d[i] - 2.0f * ia * n[i];
+    is_spec = true;
+  }
+  if (HAS_DIEL && kind == 2.0f) {
+    dielectric(d, n, param, u[2], nd);
+    is_spec = true;
+  }
+  return is_spec;
+}
+
 // One live bounce from the ray (o, d) and its winner (t, prim): adds the
 // bounce's emission and NEE term into res, and moves the state (o, d, t,
 // prim, th, prev_spec, rng) on to the next bounce.  Records the draws and
@@ -370,17 +424,7 @@ HPT_HD void live_bounce(const Scene& S, float* o, float* d, float& t, int& prim,
   // BSDF sample: 3 draws.
   for (int i = 0; i < 3; ++i) dr.u[i] = uniform(rng);
   float nd[3];
-  cosine_hemisphere(n, dr.u[0], dr.u[1], nd);
-  bool is_spec = false;
-  if (HAS_GLOSSY && kind == 1.0f) {
-    float ia = dot3(d, n);
-    for (int i = 0; i < 3; ++i) nd[i] = d[i] - 2.0f * ia * n[i];
-    is_spec = true;
-  }
-  if (HAS_DIEL && kind == 2.0f) {
-    dielectric(d, n, param, dr.u[2], nd);
-    is_spec = true;
-  }
+  const bool is_spec = bsdf_sample<HAS_GLOSSY, HAS_DIEL>(d, n, param, kind, dr.u, nd);
 
   // Light sample: 3 draws, taken even with no emitter.
   for (int i = 0; i < 3; ++i) dr.us[i] = uniform(rng);
@@ -418,6 +462,20 @@ HPT_HD bool dead_bounce(const float* th, float t) {
   return dot3(th, th) <= kNearZeroEps || !(t < kInfinite);
 }
 
+// The residual word of one (sample, bounce) that the recording forward
+// writes for the NEE backward (ops/nee_vjp.py, fold-free replay): the
+// bounce's winner prim (the fold's, entering the bounce) and three flags.
+// Bits 0 and 1 are the TPU kernel's flags word (ops/pallas_nee.py
+// grad_residuals: bit 0 the shadow ray is blocked, bit 1 the ray hit);
+// bit 2 says the bounce was live, so the word of the bounce where a path
+// ends (a miss, or near-zero throughput) carries a clear bit 2.
+constexpr int kOccBit = 1, kHitBit = 2, kLiveBit = 4, kPrimShift = 3;
+
+HPT_HD int residual_word(int prim, bool hit, bool live, bool occ) {
+  return (prim << kPrimShift) | (live ? kLiveBit : 0) | (hit ? kHitBit : 0) |
+         (occ ? kOccBit : 0);
+}
+
 // `spp` samples of one pixel, summed into acc, from the primary hit
 // (t0, prim0).  Every lane runs its own RNG stream, and each sample restarts
 // from the primary hit, so this one loop gives what the TPU kernel's legacy
@@ -425,11 +483,13 @@ HPT_HD bool dead_bounce(const float* th, float t) {
 // lane for lane.  A path leaves the bounce loop at its first dead bounce
 // (near-zero throughput or a miss): a dead lane keeps its state, draws
 // nothing and adds nothing, so the bounces left would change nothing.
-// `steps` counts the live bounces.
-template <bool HAS_GLOSSY, bool HAS_DIEL>
+// `steps` counts the live bounces.  With RECORD the residual word of each
+// (sample s, bounce b) the path reaches, the bounce where it ends included,
+// goes to rec[(s * num_bounces + b) * stride]; later words are not written.
+template <bool HAS_GLOSSY, bool HAS_DIEL, bool RECORD>
 HPT_HD void trace_pixel(const Scene& S, const float* po, const float* pd,
                         float t0, int prim0, Rng& rng, int spp, int num_bounces,
-                        float* acc, int& steps) {
+                        float* acc, int& steps, int* rec, int stride) {
   for (int s = 0; s < spp; ++s) {
     float o[3] = {po[0], po[1], po[2]}, d[3] = {pd[0], pd[1], pd[2]};
     float t = t0;
@@ -437,22 +497,30 @@ HPT_HD void trace_pixel(const Scene& S, const float* po, const float* pd,
     float res[3] = {0.0f, 0.0f, 0.0f}, th[3] = {1.0f, 1.0f, 1.0f};
     bool prev_spec = true;  // camera rays see lights
     for (int bounce = 0; bounce < num_bounces; ++bounce) {
-      if (dead_bounce(th, t)) break;
+      int* word = RECORD ? rec + (size_t)(s * num_bounces + bounce) * stride : nullptr;
+      if (dead_bounce(th, t)) {
+        if (RECORD) *word = residual_word(prim, t < kInfinite, false, false);
+        break;
+      }
       ++steps;
       Draws dr;
+      const int winner = prim;
       live_bounce<HAS_GLOSSY, HAS_DIEL>(S, o, d, t, prim, th, prev_spec, rng, res, dr);
+      if (RECORD) *word = residual_word(winner, true, true, dr.occ);
     }
     for (int i = 0; i < 3; ++i) acc[i] = acc[i] + res[i];
   }
 }
 
 // One pixel q of the NEE kernel: its primary hit (from the probe's t0_in and
-// prim0_in when given, else folded here), its samples, its outputs.
-template <bool HAS_GLOSSY, bool HAS_DIEL>
+// prim0_in when given, else folded here), its samples, its outputs; with
+// RECORD its residual words at rec, `stride` apart.
+template <bool HAS_GLOSSY, bool HAS_DIEL, bool RECORD = false>
 HPT_HD void nee_pixel(const Scene& S, int q, const float* origin,
                       const float* direction, const uint32_t* rng_in,
                       const float* t0_in, const int* prim0_in, float* radiance,
-                      uint32_t* rng_out, int* steps, int spp, int num_bounces) {
+                      uint32_t* rng_out, int* steps, int spp, int num_bounces,
+                      int* rec = nullptr, int stride = 0) {
   const float po[3] = {origin[3 * q], origin[3 * q + 1], origin[3 * q + 2]};
   const float pd[3] = {direction[3 * q], direction[3 * q + 1], direction[3 * q + 2]};
   float t0;
@@ -466,8 +534,8 @@ HPT_HD void nee_pixel(const Scene& S, int q, const float* origin,
   Rng rng{rng_in[4 * q], rng_in[4 * q + 1], rng_in[4 * q + 2], rng_in[4 * q + 3]};
   float acc[3] = {0.0f, 0.0f, 0.0f};
   int n_steps = 0;
-  trace_pixel<HAS_GLOSSY, HAS_DIEL>(S, po, pd, t0, prim0, rng, spp, num_bounces,
-                                    acc, n_steps);
+  trace_pixel<HAS_GLOSSY, HAS_DIEL, RECORD>(S, po, pd, t0, prim0, rng, spp, num_bounces,
+                                            acc, n_steps, rec, stride);
   for (int i = 0; i < 3; ++i) radiance[3 * q + i] = acc[i];
   rng_out[4 * q] = rng.a;
   rng_out[4 * q + 1] = rng.b;

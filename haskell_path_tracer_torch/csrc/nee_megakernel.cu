@@ -32,7 +32,17 @@
 //   * a path leaves the bounce loop at its first dead bounce (exact: a dead
 //     lane stays dead), so a thread's work is its live bounces;
 //   * `order` (optional) maps thread i to pixel order[i], the presort's
-//     depth order, with the probe's (t0, prim0) read instead of folded.
+//     depth order, with the probe's (t0, prim0) read instead of folded;
+//   * the recording instance (RECORD, the forward of the NEE gradient,
+//     ops/nee_vjp.py) also writes one int32 residual word per (sample,
+//     bounce) that the lane reaches (nee.cuh:residual_word: the winner,
+//     and the occlusion, hit and live bits), the TPU kernel's two
+//     grad_residuals planes packed into one.  Layout [spp * bounces, n] by
+//     thread lane i, not by pixel: a warp writes 32 adjacent words, and the
+//     backward, launched with the same lane order, reads them back
+//     adjacent, so neither frame permutes them.  Radiance and rng are the
+//     production instance's bit for bit; RECORD is a template parameter,
+//     so the production instance's code is as it was.
 //
 // Floating point: built without --use_fast_math and with -fmad=false, so
 // each a*b+c rounds twice, as PyTorch's separate ops do; sinf/cosf, sqrtf
@@ -40,7 +50,8 @@
 //
 // Layout: origin, direction [n, 3] f32; rng [n, 4] u32 (the int32 tensors'
 // bits); radiance [n, 3] f32; t0 [n] f32, prim0 [n] i32, order [n] i32,
-// steps [n] i32; tables as ops/nee.py:nee_scene_tables packs them.
+// steps [n] i32; words [spp * bounces, n] i32; tables as
+// ops/nee.py:nee_scene_tables packs them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,21 +79,23 @@ __device__ nee::Scene stage_tables(nee::Scene S, bool in_smem) {
   return S;
 }
 
-template <bool HAS_GLOSSY, bool HAS_DIEL>
+template <bool HAS_GLOSSY, bool HAS_DIEL, bool RECORD>
 __global__ void __launch_bounds__(kThreads)
 nee_kernel(nee::Scene S, bool in_smem, const float* __restrict__ origin,
            const float* __restrict__ direction,
            const uint32_t* __restrict__ rng_in, const float* __restrict__ t0_in,
            const int* __restrict__ prim0_in, const int* __restrict__ order,
            float* __restrict__ radiance, uint32_t* __restrict__ rng_out,
-           int* __restrict__ steps, int num_pixels, int spp, int num_bounces) {
+           int* __restrict__ steps, int* __restrict__ words, int num_pixels,
+           int spp, int num_bounces) {
   S = stage_tables(S, in_smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= num_pixels) return;
   const int q = order != nullptr ? order[i] : i;
-  nee::nee_pixel<HAS_GLOSSY, HAS_DIEL>(S, q, origin, direction, rng_in, t0_in,
-                                       prim0_in, radiance, rng_out, steps, spp,
-                                       num_bounces);
+  nee::nee_pixel<HAS_GLOSSY, HAS_DIEL, RECORD>(S, q, origin, direction, rng_in, t0_in,
+                                               prim0_in, radiance, rng_out, steps, spp,
+                                               num_bounces, RECORD ? words + i : nullptr,
+                                               num_pixels);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -110,43 +123,46 @@ template <bool G, bool D>
 void launch_nee(const nee::Scene& S, const float* origin, const float* direction,
                 const uint32_t* rng_in, const float* t0_in, const int* prim0_in,
                 const int* order, float* radiance, uint32_t* rng_out, int* steps,
-                int num_pixels, int spp, int num_bounces, cudaStream_t stream) {
+                int* words, int num_pixels, int spp, int num_bounces,
+                cudaStream_t stream) {
   const size_t smem = smem_bytes(S);
   const int blocks = (num_pixels + kThreads - 1) / kThreads;
-  nee_kernel<G, D><<<blocks, kThreads, smem, stream>>>(
+  auto kernel = words != nullptr ? nee_kernel<G, D, true> : nee_kernel<G, D, false>;
+  kernel<<<blocks, kThreads, smem, stream>>>(
       S, smem > 0, origin, direction, rng_in, t0_in, prim0_in, order, radiance,
-      rng_out, steps, num_pixels, spp, num_bounces);
+      rng_out, steps, words, num_pixels, spp, num_bounces);
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes.  Each launches on `stream` without
 // synchronising and returns cudaGetLastError() (0 = launched).  t0_in,
-// prim0_in, order and steps may be null.
+// prim0_in, order and steps may be null; words null launches the
+// production instance, else the recording one.
 extern "C" int hpt_nee_launch(
     const float* fold, const float* payload, const float* lights,
     int num_spheres, int num_planes, int num_boxes, int num_triangles,
     int num_lights, const float* origin, const float* direction,
     const uint32_t* rng_in, const float* t0_in, const int* prim0_in,
     const int* order, float* radiance, uint32_t* rng_out, int* steps,
-    int num_pixels, int spp, int num_bounces, int has_glossy, int has_diel,
-    void* stream) {
+    int* words, int num_pixels, int spp, int num_bounces, int has_glossy,
+    int has_diel, void* stream) {
   const nee::Scene S{fold, payload, lights, num_spheres, num_planes,
                      num_boxes, num_triangles, num_lights};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_pixels > 0) {
     if (has_glossy && has_diel)
       launch_nee<true, true>(S, origin, direction, rng_in, t0_in, prim0_in, order,
-                             radiance, rng_out, steps, num_pixels, spp, num_bounces, s);
+                             radiance, rng_out, steps, words, num_pixels, spp, num_bounces, s);
     else if (has_glossy)
       launch_nee<true, false>(S, origin, direction, rng_in, t0_in, prim0_in, order,
-                              radiance, rng_out, steps, num_pixels, spp, num_bounces, s);
+                              radiance, rng_out, steps, words, num_pixels, spp, num_bounces, s);
     else if (has_diel)
       launch_nee<false, true>(S, origin, direction, rng_in, t0_in, prim0_in, order,
-                              radiance, rng_out, steps, num_pixels, spp, num_bounces, s);
+                              radiance, rng_out, steps, words, num_pixels, spp, num_bounces, s);
     else
       launch_nee<false, false>(S, origin, direction, rng_in, t0_in, prim0_in, order,
-                               radiance, rng_out, steps, num_pixels, spp, num_bounces, s);
+                               radiance, rng_out, steps, words, num_pixels, spp, num_bounces, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,7 +18,10 @@
 // not taken is needed.
 //
 // The replay runs the forward's own device functions (nee.cuh:live_bounce),
-// folds included, so its decisions are the forward kernel's bit for bit.
+// folds included, so its decisions are the forward kernel's bit for bit; or,
+// from the recording forward's residual words, runs no fold at all
+// (replay_bounce), the winner's distance recomputed by the fold's own
+// expression (winner_t).
 //
 // Cotangents of the tables (ops/nee.py:nee_scene_tables): the winner's fold
 // row (a sphere's [c, r^2], a plane's [p, n], a triangle's [v0, e1, e2]), its
@@ -304,30 +307,23 @@ HPT_HD void tri_area_vjp(const float* v0, const float* e1, const float* e2,
   cross3_vjp(e1, e2, g_nv, ge1, ge2);
 }
 
-// The winner's distance from its fold row g, without the acceptance tests
-// (the fold already took them): the same f32 sequence as fold().
+// The winner's distance from its fold row, without the acceptance tests
+// (the fold already took them): the fold's own device functions
+// (nee.cuh:sphere_root, plane_t, moller_trumbore), so the distance is the
+// fold's bit for bit and the fold-free replay's rays are the forward's.
 HPT_HD float winner_t(const Scene& S, int prim, const float* o, const float* d) {
   if (prim < S.ns) {
-    const float* g = S.sphere(prim);
-    float l[3] = {g[0] - o[0], g[1] - o[1], g[2] - o[2]};
-    float ll = l[0] * l[0] + l[1] * l[1] + l[2] * l[2];
-    float tca = l[0] * d[0] + l[1] * d[1] + l[2] * d[2];
-    float h = g[3] - (ll - tca * tca);
-    return tca - sqrtf(fmaxf(h, 1e-12f));
+    float g[4], l[3], ll, h;
+    load4(S.sphere(prim), g);
+    return sphere_root(g, o, d, l, ll, h);
   }
   if (prim < S.ns + S.np) {
-    const float* g = S.plane(prim - S.ns);
-    float denom = d[0] * g[3] + d[1] * g[4] + d[2] * g[5];
-    float num = (g[0] - o[0]) * g[3] + (g[1] - o[1]) * g[4] + (g[2] - o[2]) * g[5];
-    return num / (denom == 0.0f ? kPlaneDenomEps * 0.5f : denom);
+    float denom;
+    return plane_t(S.plane(prim - S.ns), o, d, denom);
   }
   const float* g = S.tri(prim - S.ns - S.np - S.nb);
-  float pv[3], tv[3] = {o[0] - g[0], o[1] - g[1], o[2] - g[2]}, qv[3];
-  cross3(d, g + 6, pv);
-  float det = dot3(g + 3, pv);
-  float inv_det = 1.0f / (fabsf(det) < 1e-30f ? 1e-30f : det);
-  cross3(tv, g + 3, qv);
-  return dot3(g + 6, qv) * inv_det;
+  const float tv[3] = {o[0] - g[0], o[1] - g[1], o[2] - g[2]};
+  return moller_trumbore(g, tv, d).t;
 }
 
 // Reverse of winner_t: gf (the fold row's cotangent), go and gd += ...
@@ -530,16 +526,51 @@ HPT_HD void bounce_vjp(const Scene& S, const Residual& r, const float* c_o,
   winner_t_vjp(S, prim, o, d, g_t, rg.fold, go, gd);
 }
 
-// The whole backward of one pixel from its primary hit (t0, prim0): for each
-// of `spp` samples, replay the live bounces (storing their residuals in
-// `st`, which holds at least `num_bounces`), then sweep them in reverse with
-// the radiance cotangent g_rad.  Adds the primary ray's cotangents into g_o,
-// g_d and hands each bounce's row cotangents to acc(rg).
-template <bool HAS_GLOSSY, bool HAS_DIEL, class Acc>
+// One live bounce of the fold-free replay: the winner prim and the shadow
+// decision come from the recording forward's residual word, the distance
+// from the winner's fold row (winner_t, the fold's value bit for bit), so
+// the replay runs no fold and no light sample.  Draws the bounce's six
+// uniforms into dr and moves (o, d, th, prev_spec, rng) on as live_bounce
+// does.
+template <bool HAS_GLOSSY, bool HAS_DIEL>
+HPT_HD void replay_bounce(const Scene& S, float* o, float* d, int prim, bool occ,
+                          float* th, bool& prev_spec, Rng& rng, Draws& dr) {
+  const float t = winner_t(S, prim, o, d);
+  const float* m = S.payload + 12 * prim;
+  float h[3], n[3];
+  hit_normal(S, prim, m, o, d, t, h, n);
+  for (int i = 0; i < 3; ++i) dr.u[i] = uniform(rng);
+  float nd[3];
+  const bool is_spec = bsdf_sample<HAS_GLOSSY, HAS_DIEL>(d, n, m[10], m[11], dr.u, nd);
+  for (int i = 0; i < 3; ++i) dr.us[i] = uniform(rng);
+  dr.occ = occ;
+  for (int i = 0; i < 3; ++i) {
+    th[i] = th[i] * m[6 + i];
+    o[i] = h[i];
+    d[i] = nd[i];
+  }
+  prev_spec = is_spec;
+}
+
+// The whole backward of one pixel: for each of `spp` samples, replay the
+// live bounces (storing their residuals in `st`, which holds at least
+// `num_bounces`), then sweep them in reverse with the radiance cotangent
+// g_rad.  Adds the primary ray's cotangents into g_o, g_d and hands each
+// bounce's row cotangents to acc(rg).
+//
+// Two replays.  Without RESID, from the primary hit (t0, prim0) through the
+// forward's own live_bounce, folds included (the TPU kernel's fallback
+// above its residual cap).  With RESID, from the recording forward's
+// residual words rec[(s * num_bounces + b) * stride] (nee.cuh:
+// residual_word): the replay runs replay_bounce, no fold at all, the
+// primary one included (t0 and prim0 are not read), and a path ends at the
+// first word without the live bit.  Both take the same decisions, the
+// forward kernel's, and store the same residuals bit for bit.
+template <bool HAS_GLOSSY, bool HAS_DIEL, bool RESID, class Acc>
 HPT_HD void pixel_backward(const Scene& S, const float* po, const float* pd,
-                           float t0, int prim0, Rng rng, const float* g_rad,
-                           int spp, int num_bounces, Residual* st, float* g_o,
-                           float* g_d, Acc& acc) {
+                           float t0, int prim0, const int* rec, int stride, Rng rng,
+                           const float* g_rad, int spp, int num_bounces, Residual* st,
+                           float* g_o, float* g_d, Acc& acc) {
   for (int s = 0; s < spp; ++s) {
     float o[3] = {po[0], po[1], po[2]}, d[3] = {pd[0], pd[1], pd[2]};
     float th[3] = {1.0f, 1.0f, 1.0f}, res[3] = {0.0f, 0.0f, 0.0f};
@@ -548,18 +579,30 @@ HPT_HD void pixel_backward(const Scene& S, const float* po, const float* pd,
     bool prev_spec = true;
     int live = 0;
     for (int b = 0; b < num_bounces; ++b) {
-      // A dead bounce passes its ray through and zeroes the throughput, so
-      // every later bounce is dead and all their cotangents are zero.
-      if (dead_bounce(th, t)) break;
       Residual& r = st[b];
-      for (int i = 0; i < 3; ++i) { r.o[i] = o[i]; r.d[i] = d[i]; r.th[i] = th[i]; }
-      r.prim = prim;
-      r.prev_spec = prev_spec;
-      // The fold updates the shadow decision at every sphere: a local, held
-      // in a register, not the residual array's slot in local memory.
-      Draws dr;
-      live_bounce<HAS_GLOSSY, HAS_DIEL>(S, o, d, t, prim, th, prev_spec, rng, res, dr);
-      r.dr = dr;
+      if constexpr (RESID) {
+        const int w = rec[(size_t)(s * num_bounces + b) * stride];
+        if (!(w & kLiveBit)) break;
+        for (int i = 0; i < 3; ++i) { r.o[i] = o[i]; r.d[i] = d[i]; r.th[i] = th[i]; }
+        r.prim = w >> kPrimShift;
+        r.prev_spec = prev_spec;
+        Draws dr;
+        replay_bounce<HAS_GLOSSY, HAS_DIEL>(S, o, d, r.prim, (w & kOccBit) != 0, th,
+                                            prev_spec, rng, dr);
+        r.dr = dr;
+      } else {
+        // A dead bounce passes its ray through and zeroes the throughput, so
+        // every later bounce is dead and all their cotangents are zero.
+        if (dead_bounce(th, t)) break;
+        for (int i = 0; i < 3; ++i) { r.o[i] = o[i]; r.d[i] = d[i]; r.th[i] = th[i]; }
+        r.prim = prim;
+        r.prev_spec = prev_spec;
+        // The fold updates the shadow decision at every sphere: a local, held
+        // in a register, not the residual array's slot in local memory.
+        Draws dr;
+        live_bounce<HAS_GLOSSY, HAS_DIEL>(S, o, d, t, prim, th, prev_spec, rng, res, dr);
+        r.dr = dr;
+      }
       live = b + 1;
     }
     // Reverse sweep from the last live bounce.

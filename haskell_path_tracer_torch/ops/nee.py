@@ -47,9 +47,16 @@ from .intersect import _payload_table, nearest_t_prim
 SOURCE = os.path.join(MK.CSRC, "nee_megakernel.cu")
 HEADERS = (os.path.join(MK.CSRC, "nee.cuh"), os.path.join(MK.CSRC, "bounce.cuh"))
 
-# Launches of each CUDA kernel by `launch_nee` and `launch_probe`.  Callers
-# reset them to 0 to count the launches of a run.
+# Launches of each CUDA kernel by `launch_nee` and `launch_probe`
+# ("nee_megakernel" counts every launch of the NEE kernel), and
+# RECORD_LAUNCHES those of the NEE kernel's recording instance among them.
+# Callers reset them to 0 to count the launches of a run.
 LAUNCHES = {"nee_megakernel": 0, "primary_probe": 0}
+RECORD_LAUNCHES = 0
+
+# The residual word of one (sample, bounce) (csrc/nee.cuh:residual_word):
+# the winner prim << PRIM_SHIFT, and the occlusion, hit and live bits.
+OCC_BIT, HIT_BIT, LIVE_BIT, PRIM_SHIFT = 1, 2, 4, 3
 
 # presort=None takes the presort from PRESORT_MIN_SPHERES spheres and
 # PRESORT_MIN_SPP samples on (the JAX package's gate), where the H100
@@ -177,7 +184,7 @@ def _library():
         lib.hpt_nee_launch.argtypes = [
             vp, vp, vp, i, i, i, i, i,  # tables, counts, lights
             vp, vp, vp, vp, vp, vp,  # origin, direction, rng, t0, prim0, order
-            vp, vp, vp,  # radiance, rng_out, steps
+            vp, vp, vp, vp,  # radiance, rng_out, steps, words
             i, i, i, i, i, vp,
         ]
         lib.hpt_nee_launch.restype = i
@@ -224,15 +231,18 @@ def launch_probe(tables: NeeTables, rays: Rays):
 
 
 def launch_nee(tables: NeeTables, rays: Rays, rng, num_bounces, spp, has_glossy=True,
-               has_diel=True, order=None, primary=None, telemetry=False):
+               has_diel=True, order=None, primary=None, telemetry=False, record=False):
     """Launch the NEE kernel: `spp` samples of the physical/NEE estimator
     summed, on [H, W] rays and rng.  `order` (int32 [H*W], a permutation)
     makes thread i work on pixel order[i]; `primary` = (t0, prim0) from
     `launch_probe` replaces the kernel's own primary fold.  Returns
-    (radiance [H, W, 3], rng [H, W, 4] int32), and the live bounces per
-    pixel [H, W] int32 with `telemetry`.  Checks every operand, launches
-    on the current stream without synchronising and counts the launch in
-    LAUNCHES["nee_megakernel"]."""
+    (radiance [H, W, 3], rng [H, W, 4] int32), then the live bounces per
+    pixel [H, W] int32 with `telemetry`, then with `record` the residual
+    words [spp * num_bounces, H * W] int32 of the recording instance, by
+    thread lane (column i is pixel order[i]; a word past the bounce where
+    its path ended is not written).  Checks every operand, launches on the
+    current stream without synchronising and counts the launch in
+    LAUNCHES["nee_megakernel"], and in RECORD_LAUNCHES with `record`."""
     device = rng.device
     H, W = rng.shape[:2]
     _check_tables(tables, device)
@@ -251,19 +261,23 @@ def launch_nee(tables: NeeTables, rays: Rays, rng, num_bounces, spp, has_glossy=
     radiance = torch.empty((H, W, 3), dtype=torch.float32, device=device)
     rng_out = torch.empty((H, W, 4), dtype=torch.int32, device=device)
     steps = torch.empty((H, W), dtype=torch.int32, device=device) if telemetry else None
+    words = (torch.empty((spp * num_bounces, H * W), dtype=torch.int32, device=device)
+             if record else None)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _library().hpt_nee_launch(
         tables.fold.data_ptr(), tables.payload.data_ptr(), tables.lights.data_ptr(),
         *tables.counts, tables.num_lights,
         rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
         _ptr(t0), _ptr(prim0), _ptr(order),
-        radiance.data_ptr(), rng_out.data_ptr(), _ptr(steps),
+        radiance.data_ptr(), rng_out.data_ptr(), _ptr(steps), _ptr(words),
         H * W, spp, num_bounces, int(has_glossy), int(has_diel), stream,
     )
     if err != 0:
         raise RuntimeError(f"NEE megakernel launch failed: cudaError {err}")
+    global RECORD_LAUNCHES
     LAUNCHES["nee_megakernel"] += 1
-    return (radiance, rng_out, steps) if telemetry else (radiance, rng_out)
+    RECORD_LAUNCHES += int(record)
+    return (radiance, rng_out) + ((steps,) if telemetry else ()) + ((words,) if record else ())
 
 
 # Entry points -------------------------------------------------------------
@@ -279,21 +293,41 @@ def primary_probe(tables: NeeTables, rays: Rays):
 
 
 def trace_physical_nee_reference(scene: Scene, rays: Rays, rng, num_bounces: int = 8,
-                                 spp: int = 1, kinds=None, telemetry: bool = False):
+                                 spp: int = 1, kinds=None, telemetry: bool = False,
+                                 residuals: bool = False):
     """Plain version of the NEE kernel: `spp` calls of
     `render/nee.py:trace_physical(nee=True)`, the rng threaded through,
-    radiance summed; with `telemetry` also the live bounces per lane."""
+    radiance summed; with `telemetry` also the live bounces per lane, with
+    `residuals` also the recording instance's residual words [spp *
+    num_bounces, lanes] int32 in the rays' lane order.  The plain version
+    writes every word: past the bounce where a path ended, the winner and
+    hit bit it ended with and clear live and occlusion bits (the kernel
+    leaves those unwritten)."""
     from ..render import nee as RN
 
     if kinds is None:
         kinds = RN._present_kinds(scene)
     acc = torch.zeros_like(rays.origin)
     steps = torch.zeros(rays.origin.shape[:-1], dtype=torch.int32, device=rng.device)
+    words = [] if residuals else None
     for _ in range(spp):
-        radiance, rng, live = RN._trace(scene, rays, rng, num_bounces, True, kinds)
+        radiance, rng, live = RN._trace(scene, rays, rng, num_bounces, True, kinds, record=words)
         acc = acc + radiance
         steps = steps + live
-    return (acc, rng, steps) if telemetry else (acc, rng)
+    out = (acc, rng) + ((steps,) if telemetry else ())
+    return out + ((torch.stack(words).reshape(spp * num_bounces, -1),) if residuals else ())
+
+
+def written_words(words, spp: int, num_bounces: int):
+    """Which of the residual words [spp * num_bounces, lanes] the
+    recording kernel writes: each (sample, lane)'s words up to the first
+    one without LIVE_BIT, that one included.  Word b is read only where
+    words 0..b-1 are live, and so written: the kernel's own words, whose
+    unwritten entries hold anything, give the same mask."""
+    live = ((words.reshape(spp, num_bounces, -1) & LIVE_BIT) != 0).to(torch.int32)
+    through = torch.cumprod(live, dim=1)
+    written = torch.cat([torch.ones_like(through[:, :1]), through[:, :-1]], dim=1)
+    return written.reshape(spp * num_bounces, -1).bool()
 
 
 def _presort_order(t0):

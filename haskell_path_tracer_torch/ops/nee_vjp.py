@@ -3,14 +3,24 @@ backward kernel, bound into a `torch.autograd.Function`.
 
 Replaces ``haskell_path_tracer_tpu/ops/pallas_nee_vjp.py`` — its custom VJP
 (`_make_nee_diff_fn`, `trace_physical_nee_pallas_diff`) and the backward
-kernel `_nee_bwd_kernel` (launched by `_nee_bwd_call`).
-`TracePhysicalNeeDiff`'s forward is the NEE megakernel of ``ops/nee.py``
-(`launch_nee`, unchanged and bit-equal); its backward is
-`launch_nee_backward`, the hand-written CUDA kernel in
-``csrc/nee_megakernel_vjp.cu``, which replays each sample's bounces (folds
-included) and sweeps them in reverse with every decision detached: the
-winner, the shadow decision, the hit and dead masks, the BRDF branch and the
-six uniforms of each bounce.
+kernel `_nee_bwd_kernel` (launched by `_nee_bwd_call`), in both of that
+kernel's modes.  `TracePhysicalNeeDiff`'s forward is the NEE megakernel of
+``ops/nee.py`` (`launch_nee`, bit-equal to the render path's); its backward
+is `launch_nee_backward`, the hand-written CUDA kernel in
+``csrc/nee_megakernel_vjp.cu``, which replays each sample's bounces and
+sweeps them in reverse with every decision detached: the winner, the shadow
+decision, the hit and dead masks, the BRDF branch and the six uniforms of
+each bounce.
+
+Two modes, as in the TPU package.  Residual mode (its `grad_residuals` /
+`fold_residuals`): when the words fit in RESIDUAL_MAX_BYTES
+(`records_residuals`) the forward is the NEE kernel's recording instance,
+which also writes one int32 word per (sample, bounce) with the bounce's
+winner and its occlusion, hit and live bits (`ops/nee.py`: PRIM_SHIFT,
+OCC_BIT, HIT_BIT, LIVE_BIT), and the backward replays from those words
+without a single fold.  Replay mode, above the budget: the backward replays the folds as the forward ran them.
+Both give the forward's decisions bit for bit, so they compute the same
+gradient up to the order of the atomic sums.
 
 Gradients: the NEE tables (`NeeTables.fold`, `.payload`, `.lights`) and
 the primary rays.  Autograd of `ops/nee.py:nee_scene_tables` maps the
@@ -25,9 +35,10 @@ The Function takes CUDA tensors only; on CPU tensors
 `trace_physical_nee_diff` runs the plain version,
 `ops/nee.py:trace_physical_nee_reference`, under autograd.
 `backward_reference`, the plain version of the backward, is autograd of that
-trace, one sample at a time.  `bounce_reference` is one live bounce of the
-kernel at the table level, the oracle of the adjoint's host test
-(tests/test_torch_nee_adjoint_host.py).
+trace, one sample at a time, or, given residual words, autograd of
+`trace_from_words`, the plain version of the residual mode's replay.
+`bounce_reference` is one live bounce of the kernel at the table level, the
+oracle of the adjoint's host test (tests/test_torch_nee_adjoint_host.py).
 
 Ties: the kernel recomputes the distance of the fold's winner, the first
 index at the least t, so a tie's cotangent goes to that winner alone, as
@@ -39,6 +50,7 @@ Sorted gradient frame: with `sorted_lanes` the probe's primary depths are
 argsorted (sky last) and both kernels take that lane order, thread i
 working on pixel order[i] with the probe's (t0, prim0): per pixel the
 results are those of raster order, and no differentiable gather is needed.
+The residual words stay in lane order between the two kernels.
 
 Tolerance against the plain version: loss rtol 1e-5 and, per `SceneParams`
 field, a normalised error max|a - b| / max|b| below 5e-3
@@ -46,9 +58,10 @@ field, a normalised error max|a - b| / max|b| below 5e-3
 atomics in an order that changes from run to run, and grazing lanes amplify
 a last-bit difference of the forward in the gradient.
 
-The kernel is bound by fp32 work: the replay repeats the forward's dual
-fold at every live bounce; the adjoint adds under a thousand operations per
-bounce (see the note at the top of the CUDA source).
+The replay mode is bound by fp32 work: its replay repeats the forward's
+dual fold at every live bounce.  The residual mode's work is the adjoint
+alone, under a thousand operations per bounce, and its atomic sums (see
+the note at the top of the CUDA source).
 """
 
 from __future__ import annotations
@@ -63,6 +76,7 @@ from ..core import linalg
 from ..models.objects import BRDF_DIELECTRIC, BRDF_GLOSSY, BRDF_MATTE, Rays, Scene
 from . import megakernel as MK
 from . import nee as NE
+from . import rng as rng_ops
 from .intersect import INFINITE, PLANE_DENOM_EPS, Hit
 
 SOURCE = os.path.join(MK.CSRC, "nee_megakernel_vjp.cu")
@@ -73,9 +87,36 @@ MAX_BOUNCES = 16
 # a scene with boxes.
 _CUDA_ERROR_INVALID_VALUE = 1
 
-# Launches of the backward kernel by `launch_nee_backward`.  Callers reset
-# it to 0 to count the launches of a run.
+# The gradient's forward records residual words, 4 B per lane, sample and
+# bounce, when they take at most this many bytes; above it the backward
+# replays the folds.  2 GiB: the TPU package's budget of 64 int32 planes
+# at 4K (`MAX_RESIDUAL_PLANES`, set there by VMEM) in bytes, under 3% of
+# the H100's 80 GB; writing and reading the words back costs 2 bytes /
+# 3.35 TB/s, 1.3 ms at the cap, where the fold replay they spare costs
+# hundreds of milliseconds at suite config 7 (PERF.md).  Tests set it to 0
+# to take the replay mode.
+RESIDUAL_MAX_BYTES = 1 << 31
+# The residual mode keeps the light cotangents (64 B per emitter row) in a
+# shared-memory tile, so it is taken only when that tile fits in the 48 KB
+# any block may take without opting in for more: up to 768 emitters.
+RESIDUAL_LIGHT_TILE_MAX_BYTES = 48 * 1024
+# The residual mode sums the fold and payload cotangents (64 B per sphere)
+# in shared-memory tiles too, each block adding its tiles to the output
+# once, when the three tiles take at most RESIDUAL_TILE_MAX_BYTES (and fit
+# in the card's opt-in shared memory per block, which the launch checks);
+# larger tables take one global atomic per entry and bounce.  113 KB: the
+# most that keeps two blocks resident per SM of an H100 (228 KB of shared
+# memory per SM, 1 KB of it reserved per block).  On an H100 at suite
+# config 7's shapes the tiles won 2.4-2.6x with 3 blocks per SM (1000
+# spheres) and 1.65-1.8x with 2 (1600), and lost 9-11% with 1 (3400;
+# PERF.md, phase 20).  Tests set it to 0 to take the global atomics.
+RESIDUAL_TILE_MAX_BYTES = 113 * 1024
+
+# Launches of the backward kernel by `launch_nee_backward`: LAUNCHES counts
+# every launch, RESIDUAL_LAUNCHES those of the residual mode among them.
+# Callers reset them to 0 to count the launches of a run.
 LAUNCHES = 0
+RESIDUAL_LAUNCHES = 0
 
 _lib = None
 
@@ -98,6 +139,7 @@ def _library():
         lib.hpt_nee_vjp_launch.argtypes = [
             vp, vp, vp, i, i, i, i, i,  # tables, counts, lights
             vp, vp, vp, vp, vp, vp, vp,  # origin, direction, rng, t0, prim0, order, g_rad
+            vp, i,  # words, tiles_in_smem
             vp, vp, vp, vp, vp,  # d_fold, d_payload, d_lights, d_origin, d_direction
             i, i, i, i, i, vp,
         ]
@@ -243,12 +285,51 @@ def bounce_reference(fold, payload, lights, counts, num_lights, o, d, th, t_det,
     return h, nd, th * tmod, emission, nee, is_spec
 
 
+def trace_from_words(tables: NE.NeeTables, rays: Rays, rng, words, num_bounces: int, spp: int,
+                     has_glossy=True, has_diel=True):
+    """Plain version of the residual mode's replay: `spp` samples of the
+    NEE estimator with every decision taken from the residual words
+    [spp * num_bounces, lanes] int32 (lanes in the rays' order, as
+    `launch_nee(record=True)` writes them in the raster frame): the winner
+    and the shadow decision from the word, the distance recomputed from the
+    winner's fold row, a path ending at its first word without LIVE_BIT
+    (what follows is not read).  No fold runs.  Returns (radiance sum
+    [..., 3], rng [..., 4]), differentiable in the tables and the rays."""
+    shape = rays.origin.shape[:-1]
+    o0, d0 = rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)
+    rng = rng.reshape(-1, 4)
+    words = words.reshape(spp * num_bounces, -1)
+    acc = torch.zeros_like(o0)
+    for s in range(spp):
+        o, d, th = o0, d0, torch.ones_like(o0)
+        prev_spec = torch.ones(o0.shape[:1], dtype=torch.bool, device=o0.device)
+        alive = torch.ones_like(prev_spec)
+        for b in range(num_bounces):
+            w = words[s * num_bounces + b]
+            alive = alive & ((w & NE.LIVE_BIT) != 0)
+            prim = torch.where(alive, w >> NE.PRIM_SHIFT, 0)
+            un, rng2 = rng_ops.gen_vec(rng)
+            un2, rng2 = rng_ops.gen_vec(rng2)
+            h, nd, nth, emission, nee, is_spec = bounce_reference(
+                tables.fold, tables.payload, tables.lights, tables.counts, tables.num_lights,
+                o, d, th, torch.where(alive, 0.0, INFINITE), prim, prev_spec,
+                (un + 1.0) * 0.5, (un2 + 1.0) * 0.5, (w & NE.OCC_BIT) != 0, has_glossy, has_diel)
+            a3 = alive[:, None]
+            acc = acc + torch.where(a3, emission + nee, 0.0)
+            o, d, th = torch.where(a3, h, o), torch.where(a3, nd, d), torch.where(a3, nth, th)
+            prev_spec = torch.where(alive, is_spec, prev_spec)
+            rng = torch.where(a3, rng2, rng)
+    return acc.reshape(*shape, 3), rng.reshape(*shape, 4)
+
+
 def backward_reference(scene: Scene, rays: Rays, rng, g_rad, num_bounces: int, spp: int,
-                       kinds=None):
+                       kinds=None, words=None):
     """Plain version of the backward kernel: autograd of
     `trace_physical_nee_reference`, one sample at a time (each sample
-    starts from the rng the one before it left).  Returns ({SceneParams
-    field: gradient}, d_origin, d_direction)."""
+    starts from the rng the one before it left); with `words`, the residual
+    mode's: autograd of `trace_from_words`, every decision taken from the
+    words.  Returns ({SceneParams field: gradient}, d_origin,
+    d_direction)."""
     from ..diff.grad import SceneParams
     from ..render import nee as RN
 
@@ -258,11 +339,21 @@ def backward_reference(scene: Scene, rays: Rays, rng, g_rad, num_bounces: int, s
     total = [torch.zeros_like(x) for x in (*leaves, o, d)]
     if kinds is None:
         kinds = RN._present_kinds(scene)
-    for _ in range(spp):
+    passes = []
+    if words is not None:
+        light_idx = NE.scene_light_indices(scene)
         with torch.enable_grad():
-            rad, rng, _ = RN._trace(_leaf_scene(leaves, scene), Rays(origin=o, direction=d), rng,
-                                    num_bounces, True, kinds)
-            grads = torch.autograd.grad(rad, [*leaves, o, d], g_rad, allow_unused=True)
+            tabs = NE.nee_scene_tables(_leaf_scene(leaves, scene), light_idx)
+            rad, _ = trace_from_words(tabs, Rays(origin=o, direction=d), rng, words, num_bounces,
+                                      spp, BRDF_GLOSSY in kinds, BRDF_DIELECTRIC in kinds)
+            passes.append(torch.autograd.grad(rad, [*leaves, o, d], g_rad, allow_unused=True))
+    else:
+        for _ in range(spp):
+            with torch.enable_grad():
+                rad, rng, _ = RN._trace(_leaf_scene(leaves, scene), Rays(origin=o, direction=d), rng,
+                                        num_bounces, True, kinds)
+                passes.append(torch.autograd.grad(rad, [*leaves, o, d], g_rad, allow_unused=True))
+    for grads in passes:
         for acc, x in zip(total, grads):
             if x is not None:
                 acc += x
@@ -272,15 +363,39 @@ def backward_reference(scene: Scene, rays: Rays, rng, g_rad, num_bounces: int, s
 # The CUDA kernel ----------------------------------------------------------
 
 
+def records_residuals(pixels: int, spp: int, num_bounces: int, num_lights: int) -> bool:
+    """Whether the gradient's forward records residual words: when they
+    take at most RESIDUAL_MAX_BYTES and the backward's light tile (64 B per
+    emitter row, one row without emitters) at most
+    RESIDUAL_LIGHT_TILE_MAX_BYTES."""
+    return 4 * pixels * spp * num_bounces <= RESIDUAL_MAX_BYTES and _light_tile_fits(num_lights)
+
+
+def _light_tile_fits(num_lights: int) -> bool:
+    return 64 * max(num_lights, 1) <= RESIDUAL_LIGHT_TILE_MAX_BYTES
+
+
+def residual_tiles_in_smem(tables: NE.NeeTables) -> bool:
+    """Whether the residual mode may sum the fold and payload cotangents in
+    shared-memory tiles: when all three tiles fit in
+    RESIDUAL_TILE_MAX_BYTES."""
+    entries = tables.fold.numel() + tables.payload.numel() + tables.lights.numel()
+    return 4 * entries <= RESIDUAL_TILE_MAX_BYTES
+
+
 def launch_nee_backward(tables: NE.NeeTables, rays: Rays, rng, g_rad, num_bounces, spp,
-                        has_glossy=True, has_diel=True, order=None, primary=None):
+                        has_glossy=True, has_diel=True, order=None, primary=None, words=None):
     """Launch the backward kernel: the cotangents (d_fold, d_payload,
     d_lights, d_origin, d_direction) of the radiance sum's cotangent `g_rad`
     [H, W, 3] for the trace `ops/nee.py:launch_nee` runs on the same
-    operands (`order` and `primary` as there).  Checks every operand,
-    launches on the current stream without synchronising and counts the
-    launch in LAUNCHES."""
-    global LAUNCHES
+    operands (`order` and `primary` as there).  With `words`, the residual
+    words that `launch_nee(..., record=True)` wrote with the same `order`,
+    the residual mode, which runs no fold and does not read `primary`
+    (its cotangent tiles by `residual_tiles_in_smem`).
+    Checks every operand, launches on the current stream without
+    synchronising and counts the launch in LAUNCHES, and in
+    RESIDUAL_LAUNCHES with `words`."""
+    global LAUNCHES, RESIDUAL_LAUNCHES
     device = rng.device
     if not rng.is_cuda:
         raise ValueError(f"launch_nee_backward takes CUDA tensors, not {device}")
@@ -305,6 +420,11 @@ def launch_nee_backward(tables: NE.NeeTables, rays: Rays, rng, g_rad, num_bounce
         t0, prim0 = primary
         MK._check("t0", t0, torch.float32, (H, W), device)
         MK._check("prim0", prim0, torch.int32, (H, W), device)
+    if words is not None:
+        MK._check("words", words, torch.int32, (spp * num_bounces, H * W), device)
+        if not _light_tile_fits(tables.num_lights):
+            raise ValueError(f"the residual mode's light tile does not hold {tables.num_lights} "
+                             f"emitter rows (RESIDUAL_LIGHT_TILE_MAX_BYTES)")
     d_fold = torch.zeros_like(tables.fold)
     d_payload = torch.zeros_like(tables.payload)
     d_lights = torch.zeros_like(tables.lights)
@@ -315,6 +435,7 @@ def launch_nee_backward(tables: NE.NeeTables, rays: Rays, rng, g_rad, num_bounce
         *tables.counts, tables.num_lights,
         rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
         NE._ptr(t0), NE._ptr(prim0), NE._ptr(order), g_rad.data_ptr(),
+        NE._ptr(words), int(residual_tiles_in_smem(tables)),
         d_fold.data_ptr(), d_payload.data_ptr(), d_lights.data_ptr(),
         d_origin.data_ptr(), d_direction.data_ptr(),
         H * W, spp, num_bounces, int(has_glossy), int(has_diel),
@@ -326,6 +447,7 @@ def launch_nee_backward(tables: NE.NeeTables, rays: Rays, rng, g_rad, num_bounce
     if err != 0:
         raise RuntimeError(f"NEE backward kernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    RESIDUAL_LAUNCHES += int(words is not None)
     return d_fold, d_payload, d_lights, d_origin, d_direction
 
 
@@ -334,31 +456,36 @@ class TracePhysicalNeeDiff(torch.autograd.Function):
     differentiable in (fold, payload, lights, origin, direction), on CUDA
     tensors: the forward is `ops/nee.py:launch_nee`, the backward
     `launch_nee_backward` (with the lane order and the probe's primary hit
-    when given)."""
+    when given).  With `record` the forward is the recording instance and
+    the backward the residual mode, on the words the forward saved; else
+    the production instance and the replay mode."""
 
     @staticmethod
     def forward(ctx, fold, payload, lights, origin, direction, rng, tables, num_bounces, spp,
-                has_glossy, has_diel, order=None, primary=None):
+                has_glossy, has_diel, order=None, primary=None, record=False):
         tabs = dataclasses.replace(tables, fold=fold, payload=payload, lights=lights)
         rays = Rays(origin=origin, direction=direction)
-        radiance, rng_out = NE.launch_nee(tabs, rays, rng, num_bounces, spp, has_glossy,
-                                          has_diel, order=order, primary=primary)
+        out = NE.launch_nee(tabs, rays, rng, num_bounces, spp, has_glossy, has_diel,
+                            order=order, primary=primary, record=record)
+        radiance, rng_out = out[:2]
+        words = out[2] if record else None
         t0, prim0 = primary if primary is not None else (None, None)
-        ctx.save_for_backward(fold, payload, lights, origin, direction, rng, order, t0, prim0)
+        ctx.save_for_backward(fold, payload, lights, origin, direction, rng, order, t0, prim0,
+                              words)
         ctx.config = (tables, num_bounces, spp, has_glossy, has_diel)
         ctx.mark_non_differentiable(rng_out)
         return radiance, rng_out
 
     @staticmethod
     def backward(ctx, g_rad, _g_rng):
-        fold, payload, lights, origin, direction, rng, order, t0, prim0 = ctx.saved_tensors
+        fold, payload, lights, origin, direction, rng, order, t0, prim0, words = ctx.saved_tensors
         tables, num_bounces, spp, has_glossy, has_diel = ctx.config
         tabs = dataclasses.replace(tables, fold=fold, payload=payload, lights=lights)
         rays = Rays(origin=origin, direction=direction)
         grads = launch_nee_backward(
             tabs, rays, rng, g_rad.contiguous(), num_bounces, spp, has_glossy, has_diel,
-            order=order, primary=None if t0 is None else (t0, prim0))
-        return (*grads, None, None, None, None, None, None, None, None)
+            order=order, primary=None if t0 is None else (t0, prim0), words=words)
+        return (*grads, None, None, None, None, None, None, None, None, None)
 
 
 def sorted_default(scene: Scene) -> bool:
@@ -378,10 +505,12 @@ def trace_physical_nee_diff(scene: Scene, rays: Rays, rng, num_bounces: int = 8,
     emitter set; `kinds` elides absent BRDF branches (both read from the
     scene when None).
 
-    CUDA tensors go through `TracePhysicalNeeDiff`: one NEE launch forward,
-    one backward launch, and with `sorted_lanes` one probe launch that both
-    share (None: `sorted_default`).  CPU tensors run the plain version,
-    `trace_physical_nee_reference`, under autograd."""
+    CUDA tensors go through `TracePhysicalNeeDiff`: one NEE launch forward
+    (the recording instance when a gradient can follow and
+    `records_residuals`), one backward launch (the residual mode then,
+    else the replay mode), and with `sorted_lanes` one probe launch that
+    both share (None: `sorted_default`).  CPU tensors run the plain
+    version, `trace_physical_nee_reference`, under autograd."""
     from ..render.nee import _present_kinds
 
     if scene.boxes.count:
@@ -406,8 +535,13 @@ def trace_physical_nee_diff(scene: Scene, rays: Rays, rng, num_bounces: int = 8,
             t0, prim0 = NE.launch_probe(
                 detached, Rays(origin=rays.origin.detach(), direction=rays.direction.detach()))
         order, primary = NE._presort_order(t0), (t0, prim0)
+    H, W = rng.shape[:2]
+    differentiable = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (tables.fold, tables.payload, tables.lights, rays.origin,
+                                  rays.direction))
     return TracePhysicalNeeDiff.apply(
         tables.fold, tables.payload, tables.lights, rays.origin.contiguous(),
         rays.direction.contiguous(), rng, tables, num_bounces, spp,
         BRDF_GLOSSY in kinds, BRDF_DIELECTRIC in kinds, order, primary,
+        differentiable and records_residuals(H * W, spp, num_bounces, tables.num_lights),
     )

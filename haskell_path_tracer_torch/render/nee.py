@@ -327,9 +327,11 @@ def sample_light_cone(scene: Scene, point, u_select, u1, u2):
     return direction, torch.where(valid, solid_angle * count, 0.0), light_idx
 
 
-def _trace(scene: Scene, rays: Rays, rng_state, num_bounces, nee, kinds):
+def _trace(scene: Scene, rays: Rays, rng_state, num_bounces, nee, kinds, record=None):
     """The shade-frame loop of `trace_physical`; returns (radiance, rng,
-    live bounces per lane [...] int32)."""
+    live bounces per lane [...] int32).  `record` (a list) receives each
+    bounce's residual word per lane (`ops/nee.py`: PRIM_SHIFT and the
+    occlusion, hit and live bits)."""
     if kinds is None:
         kinds = _present_kinds(scene)
     n_spheres = scene.spheres.count
@@ -377,6 +379,13 @@ def _trace(scene: Scene, rays: Rays, rng_state, num_bounces, nee, kinds):
             w = visible & (hit.brdf_kind == BRDF_MATTE) & (cos_i > 0.0)
             contrib = throughput * _div(hit.color, PI) * l_emit * (cos_i * inv_pdf)[..., None]
             new_result = new_result + torch.where(w[..., None], contrib, 0.0)
+
+        if record is not None:
+            flags = ((~dead).to(torch.int32) * nee_ops.LIVE_BIT
+                     + hit.hit.to(torch.int32) * nee_ops.HIT_BIT)
+            if nee and len(lights):  # no emitter: no shadow ray to block
+                flags = flags + (occ & ~dead).to(torch.int32) * nee_ops.OCC_BIT
+            record.append((prim.to(torch.int32) << nee_ops.PRIM_SHIFT) | flags)
 
         new_throughput = throughput * tmod
         t2, prim2 = nearest_t_prim(hit.point, next_d, scene, EPSILON)

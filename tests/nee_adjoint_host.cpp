@@ -70,8 +70,8 @@ void backward(const Scene& S, int num_pixels, const float* origin,
     float* go = d_origin + 3 * q;
     float* gd = d_direction + 3 * q;
     for (int i = 0; i < 3; ++i) go[i] = gd[i] = 0.0f;
-    pixel_backward<G, D>(S, origin + 3 * q, direction + 3 * q, t0, prim0, rng,
-                         g_rad + 3 * q, spp, num_bounces, st, go, gd, acc);
+    pixel_backward<G, D, false>(S, origin + 3 * q, direction + 3 * q, t0, prim0, nullptr, 0,
+                                rng, g_rad + 3 * q, spp, num_bounces, st, go, gd, acc);
   }
 }
 
