@@ -12,7 +12,8 @@ without printing a result:
      csrc/nee_megakernel.cu (the NEE kernel and the probe),
      csrc/nee_megakernel_vjp.cu (the NEE backward), csrc/sphere_fold.cu
      (the nearest-sphere and dual folds) and csrc/split.cu (deterministic
-     splitting), timed;
+     splitting), timed, with what ptxas reported for the parity kernels
+     (registers, stack frame, spills per template instance);
   3. forward kernel against its plain PyTorch version on the card, at
      800x600 / 15 bounces / 1 spp, 512x512 / 8 bounces / 4 spp and a
      ragged 333x97, on the reference, mixed-kinds and glass scenes and with
@@ -28,25 +29,35 @@ without printing a result:
      share of them that live paths traced), ms per Renderer.step at
      800x600 / 15 bounces / 1 spp, and one 64-spp launch at 800x600; the
      live bounces by winning row at both shapes, for the bounds;
-  7. backward kernel against its plain version on the card (autograd of
-     the plain trace), through the autograd Function, at 128x96 / 4 bounces
-     / 2 spp and a ragged 67x29 / 3 bounces / 1 spp on the three scenes,
-     each seen by its camera pitched 0.3 rad further down, and at the
-     training path's shapes on the reference scene seen by its own camera:
-     512x512 / 64 spp / 8 bounces and 3840x2160 / 1 spp / 4 bounces, one
-     kernel launch on the whole image against the plain backward over row
-     tiles; the Function's forward must equal the forward kernel's output
-     bit for bit, and the kernel must refuse 17 bounces;
+  7. the gradient's recording forward bit-equal to the production one and
+     its per-sample rng states equal to the plain version's, on the three
+     scenes; the backward kernel against its plain version on the card
+     (autograd of the plain trace), in both modes: through the autograd
+     Function (one thread per (pixel, sample) from the recorded states at
+     more than one sample, one thread per pixel at one sample) and the
+     other mode's kernel launched on its own with the same cotangent, at
+     128x96 / 4 bounces / 2 spp and a ragged 67x29 / 3 bounces / 1 spp on
+     the three scenes, each seen by its camera pitched 0.3 rad further
+     down, and at the training path's shapes on the reference scene seen by
+     its own camera: 512x512 / 64 spp / 8 bounces and 3840x2160 / 1 spp / 4
+     bounces, one kernel launch on the whole image against the plain
+     backward over row tiles; the Function's forward must equal the forward
+     kernel's output bit for bit, and the kernel must refuse 17 bounces in
+     both modes;
   8. backward kernel against the JAX package's golden gradients;
   9. the training path end to end: `loss_and_grad` and an SGD update on the
      reference scene towards a target rendered with the emitters' light
      x1.5, 5 steps at 512x512 / 64 spp / 8 bounces (bench.py's shape) and
      2 at 3840x2160 / 1 spp / 4 bounces (benchmarks/suite.py config 5's);
-     every step launches each kernel once, every gradient is finite, and
-     the loss falls;
+     every step launches one forward (the recording instance at 64 spp)
+     and one backward (per sample at 64 spp, per pixel at 1 spp), every
+     gradient is finite, and the loss falls;
  10. training times: fwd+bwd segments/s at 512x512 / 64 spp / 8 bounces
-     (counted as bench.py counts them), the backward kernel alone, ms per
-     SGD step at both shapes, and the plain backward at 128x96;
+     (counted as bench.py counts them), the backward kernel alone in both
+     modes, ms per SGD step at both shapes, the plain backward at 128x96,
+     and the registers,
+     stack bytes and resident warps per SM of the parity kernels'
+     instances that these launches take;
  11. NEE kernel against its plain version (`trace_physical_nee_reference`)
      on the card: the reference scene at 800x600 / 15 bounces / 2 spp,
      Cornell at 512x512 / 16 spp / 4 bounces (suite config 6), glass,
@@ -165,7 +176,9 @@ The line before the last is a JSON object of the kernels with their
 launches on the main paths (phases 5, 9, 14, 19, 23, and 18's dual-query
 route), their times, their plain versions' and their bounds at each path's
 shape (the forward and the NEE kernel at 800x600 / 15 bounces / 1 spp, the
-backward at 512x512 / 64 spp / 8 bounces, the probe at 800x600 on the
+recording forward and both backward kernels at 512x512 / 64 spp / 8
+bounces, with the parity kernels' registers, stack bytes and resident
+warps per SM, the probe at 800x600 on the
 config-4 scene, the NEE kernel's recording instance and the NEE backward
 in both modes at 512x512 / 1 / 4 on config 7's scene, the two folds at
 1920x1088 on it, the splitting kernel at 800x600 / 15 / 1 on config 3's
@@ -178,6 +191,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -275,6 +289,22 @@ REVERSE_GEOM_OPS = (67, 47, 50, 102)
 # in, ray cotangents 24 out (backward).  The tables add 4 B per entry.
 FWD_BYTES_PER_PIXEL = 68
 BWD_BYTES_PER_PIXEL = 76
+# The recorded rng of a pixel at the start of a sample (written by the
+# recording forward, read by the per-sample backward).
+STATE_BYTES = 16
+
+
+def ptxas_summary(mod) -> dict:
+    """What ptxas reported for the parity kernels of `mod`'s library
+    (registers, stack frame, spill stores and loads), by kernel and template
+    arguments: megakernel<dielectric, roulette, tables in smem, record>,
+    megakernel_vjp<dielectric, tables in smem, tile in smem, per sample>."""
+    out = {}
+    for fn, rep in MK.ptxas_report(mod.library_path()).items():
+        m = re.search(r"(megakernel(?:_vjp)?)I((?:Lb[01]E)+)E", fn)
+        if m:
+            out[f"{m.group(1)}<{','.join(re.findall(r'Lb([01])E', m.group(2)))}>"] = rep
+    return out
 
 
 def phase(label: str, /, **fields) -> None:
@@ -430,20 +460,44 @@ def plain_backward(tables, rays, rng, wts, bounces, spp, has_dielectric, rows):
             torch.cat([p[2] for p in parts]), torch.cat([p[3] for p in parts]))
 
 
-def function_vs_plain(label, tables, has_dielectric, rays, rng, bounces, spp, seed, rows):
-    """The Function's forward and backward, with loss = sum(radiance * wts),
-    against the forward kernel and the plain backward on the same inputs;
-    the plain backward timed on CUDA events (one call, over its tiles)."""
+MODES = ("sample", "pixel")
+# What the kernels line adds for the parity kernels (ops/megakernel.py:resources).
+RESOURCE_KEYS = ("registers", "stack_bytes", "warps_per_sm")
+
+
+def function_vs_plain(label, tables, has_dielectric, rays, rng, bounces, spp, seed, rows) -> list:
+    """Both backward kernels, with loss = sum(radiance * wts), against the
+    plain backward on the same inputs: the autograd Function, whose forward
+    must be the forward kernel's output and which takes one thread per
+    (pixel, sample) at spp > 1 (its forward the recording instance; the
+    card's free memory holds every shape of this script) and one per pixel
+    at one sample, and the other mode's kernel launched on its own with the
+    same cotangent (the per-sample one from the rng at one sample).  The
+    plain backward is timed on CUDA events (one call, over its tiles)."""
     geom, mat, counts = tables
     h, w = rng.shape[:2]
     wts = torch.as_tensor(
         np.random.default_rng(seed).normal(size=(h, w, 3)).astype(np.float32), device=rng.device)
-    leaves = [t.clone().requires_grad_() for t in (geom, mat, rays.origin, rays.direction)]
-    radiance, rng_out = V.TraceInlineFusedDiff.apply(*leaves, rng, counts, bounces, spp, has_dielectric)
     fwd = MK.launch_kernel(geom, mat, counts, rays, rng, bounces, spp, False, 3, has_dielectric)
+    leaves = [t.clone().requires_grad_() for t in (geom, mat, rays.origin, rays.direction)]
+    before = (MK.RECORD_LAUNCHES, V.LAUNCHES, V.SAMPLE_LAUNCHES)
+    radiance, rng_out = V.TraceInlineFusedDiff.apply(*leaves, rng, counts, bounces, spp,
+                                                    has_dielectric)
     if not (torch.equal(radiance.detach(), fwd[0]) and torch.equal(rng_out, fwd[1])):
         raise AssertionError(f"{label}: the Function's forward is not the forward kernel's")
-    got = torch.autograd.grad((radiance * wts).sum(), leaves)
+    function = torch.autograd.grad((radiance * wts).sum(), leaves)
+    sample = spp > 1
+    want_launches = (before[0] + sample, before[1] + 1, before[2] + sample)
+    if (MK.RECORD_LAUNCHES, V.LAUNCHES, V.SAMPLE_LAUNCHES) != want_launches:
+        raise AssertionError(f"{label}: launches {before} -> "
+                             f"{(MK.RECORD_LAUNCHES, V.LAUNCHES, V.SAMPLE_LAUNCHES)}")
+    if sample:
+        got = {"sample": function,
+               "pixel": V.launch_backward(*tables, rays, rng, wts, bounces, spp, has_dielectric)}
+    else:
+        got = {"pixel": function,
+               "sample": V.launch_backward(*tables, rays, rng, wts, bounces, spp, has_dielectric,
+                                           rng.view(h, w, 1, 4))}
     torch.cuda.reset_peak_memory_stats(rng.device)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -452,16 +506,44 @@ def function_vs_plain(label, tables, has_dielectric, rays, rng, bounces, spp, se
     torch.cuda.synchronize()
     if not (want[1].abs().max() > 0):
         raise AssertionError(f"{label}: the material gradient is all zero")
-    return {**grad_errors(label, got, want, counts), "plain_ms": start.elapsed_time(end),
-            "peak_gib": torch.cuda.max_memory_allocated(rng.device) / 2**30}
+    plain = {"plain_ms": start.elapsed_time(end),
+             "peak_gib": torch.cuda.max_memory_allocated(rng.device) / 2**30}
+    return [{**grad_errors(f"{label} {mode}", g, want, counts), "mode": mode,
+             "through": "function" if (mode == "sample") == sample else "launch", **plain}
+            for mode, g in got.items()]
+
+
+def recording_vs_plain(scenes, dev) -> list:
+    """Phase 7: the recording forward bit-equal to the production one, and
+    its states equal to the plain version's (the rng at the start of every
+    sample), on the three scenes."""
+    out = []
+    for name, (scene, cam) in scenes.items():
+        w, h, bounces, spp = 96, 64, 6, 5
+        tables = (*MK.scene_tables(scene), MK.primitive_counts(scene))
+        rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 70 + len(out), dev)
+        diel = scene.has_dielectric()
+        rec = MK.launch_kernel(*tables, rays, rng, bounces, spp, False, 3, diel, record=True)
+        prod = MK.launch_kernel(*tables, rays, rng, bounces, spp, False, 3, diel)
+        want = MK.sample_states_reference(*tables, rays, rng, bounces, spp, diel)
+        plain = MK.trace_tables_reference(*tables, rays, rng, bounces, spp, False, 3, diel)
+        torch.cuda.synchronize()
+        if not (torch.equal(rec[0], prod[0]) and torch.equal(rec[1], prod[1])):
+            raise AssertionError(f"{name}: the recording forward is not the production one")
+        states = (rec[2] == want).all(-1).double().mean().item()
+        if states < RNG_MIN:
+            raise AssertionError(f"{name}: recorded states equal on {states:.6f} (>= {RNG_MIN})")
+        out.append({**check(f"record {name} {w}x{h} b{bounces} spp{spp}", rec[:2], plain),
+                    "states_equal": states, "bit_equal_to_production": True})
+    return out
 
 
 def backward_vs_plain(scenes, dev) -> list:
-    """Phase 7: the Function against the forward kernel and the plain
-    backward, on the three scenes pitched at small shapes, and on the
-    reference scene seen by its own camera at 3840x2160 / 1 spp / 4
+    """Phase 7: the Function in both modes against the forward kernel and
+    the plain backward, on the three scenes pitched at small shapes, and on
+    the reference scene seen by its own camera at 3840x2160 / 1 spp / 4
     bounces (the plain backward over tiles of 540 rows).  The backward
-    kernel refuses more bounces than its replay keeps."""
+    kernel refuses more bounces than its replay keeps, in both modes."""
     results = []
     for (w, h, bounces, spp) in [(128, 96, 4, 2), (67, 29, 3, 1)]:
         for name, (scene, cam) in scenes.items():
@@ -469,21 +551,22 @@ def backward_vs_plain(scenes, dev) -> list:
             pitched = Camera.create(cam.position.tolist(), [rot[0] - PITCH, rot[1], rot[2]], 90.0, dev)
             seed = len(results)
             tables = (*MK.scene_tables(scene), MK.primitive_counts(scene))
-            results.append(function_vs_plain(
+            results += function_vs_plain(
                 f"{name} {w}x{h} b{bounces} spp{spp}", tables, scene.has_dielectric(),
-                primary_rays(pitched, w, h), gen_seeds((h, w), seed, dev), bounces, spp, seed, h))
+                primary_rays(pitched, w, h), gen_seeds((h, w), seed, dev), bounces, spp, seed, h)
     scene, cam = scenes["main"]
     tables = (*MK.scene_tables(scene), MK.primitive_counts(scene))
     w, h = 3840, 2160
     rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 0, dev)
-    results.append(function_vs_plain(f"main {w}x{h} b4 spp1", tables, False, rays, rng, 4, 1, w, 540))
+    results += function_vs_plain(f"main {w}x{h} b4 spp1", tables, False, rays, rng, 4, 1, w, 540)
     before = V.LAUNCHES
-    try:
-        V.launch_backward(*tables, rays, rng, torch.zeros_like(rays.origin), 17, 1, False)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("the backward kernel took 17 bounces")
+    for samples in (None, rng.view(h, w, 1, 4)):
+        try:
+            V.launch_backward(*tables, rays, rng, torch.zeros_like(rays.origin), 17, 1, False, samples)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("the backward kernel took 17 bounces")
     if V.LAUNCHES != before:
         raise AssertionError("a refused backward launch was counted")
     return results
@@ -491,17 +574,37 @@ def backward_vs_plain(scenes, dev) -> list:
 
 def backward_main_shape(tables, rays, rng, mix) -> dict:
     """Phase 7 at the training path's shape, 512x512 / 64 spp / 8 bounces:
-    the check, the backward kernel's time, the plain backward's (one
-    sample at a time) and the kernel's bound, on the same inputs."""
+    the check in both modes, the recording forward's and both backward
+    kernels' times, the plain backward's (one sample at a time) and the
+    bounds, on the same inputs."""
     bounces, spp = 8, 64
-    case = function_vs_plain("main 512x512 b8 spp64", tables, False, rays, rng, bounces, spp, 512, 512)
+    cases = function_vs_plain("main 512x512 b8 spp64", tables, False, rays, rng, bounces, spp, 512,
+                              512)
     wts = torch.as_tensor(
         np.random.default_rng(512).normal(size=(*rng.shape[:2], 3)).astype(np.float32), device=rng.device)
-    kernel = cuda_times(lambda: V.launch_backward(*tables, rays, rng, wts, bounces, spp, False), 20)
+    states = MK.launch_kernel(*tables, rays, rng, bounces, spp, False, 3, False, record=True)[2]
+    pixels = rng.shape[0] * rng.shape[1]
     ops = bounce_ops(tables, mix, False, backward=True)
-    return {"case": case, "kernel": kernel,
-            **bound(BWD_BYTES_PER_PIXEL * rng.shape[0] * rng.shape[1] + 2 * table_bytes(tables), ops),
-            "ops": ops, "live_bounces": sum(mix)}
+    base = BWD_BYTES_PER_PIXEL * pixels + 2 * table_bytes(tables)
+    out = {"cases": cases, "ops": ops, "live_bounces": sum(mix),
+           "record": {**cuda_times(lambda: MK.launch_kernel(*tables, rays, rng, bounces, spp, False, 3,
+                                                            False, record=True), 30),
+                      **bound(FWD_BYTES_PER_PIXEL * pixels + STATE_BYTES * pixels * spp
+                              + table_bytes(tables), bounce_ops(tables, mix, False, backward=False))},
+           "sample": {**cuda_times(lambda: V.launch_backward(*tables, rays, rng, wts, bounces, spp,
+                                                             False, states), 20),
+                      **bound(base + STATE_BYTES * pixels * spp, ops)},
+           "pixel": {**cuda_times(lambda: V.launch_backward(*tables, rays, rng, wts, bounces, spp,
+                                                            False), 20),
+                     **bound(base, ops)}}
+    # The plain version of the recording: the plain trace, sample by sample.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    MK.sample_states_reference(*tables, rays, rng, bounces, spp, False)
+    end.record()
+    torch.cuda.synchronize()
+    out["record"]["plain_ms"] = start.elapsed_time(end)
+    return out
 
 
 def backward_vs_golden(golden, dev) -> list:
@@ -534,9 +637,22 @@ def sgd_step(params, scene, cam, target, rng, bounces, spp):
     return loss, grads, G.SceneParams(*(p - LR * g for p, g in zip(params, grads)))
 
 
+def parity_launches() -> dict:
+    """The parity kernels' launch counts: the forward's production and
+    recording instances, the per-pixel and per-sample backward."""
+    return {"megakernel": MK.LAUNCHES - MK.RECORD_LAUNCHES, "megakernel_record": MK.RECORD_LAUNCHES,
+            "megakernel_vjp": V.LAUNCHES - V.SAMPLE_LAUNCHES,
+            "megakernel_vjp_sample": V.SAMPLE_LAUNCHES}
+
+
+def reset_parity_launches() -> None:
+    MK.LAUNCHES = MK.RECORD_LAUNCHES = V.LAUNCHES = V.SAMPLE_LAUNCHES = 0
+
+
 def training_path(dev) -> dict:
     """Phase 9: SGD on the reference scene towards a target rendered with
-    the emitters' illuminance x1.5, through `loss_and_grad` on CUDA."""
+    the emitters' illuminance x1.5, through `loss_and_grad` on CUDA (the
+    backward per sample at 64 spp, per pixel at 1 spp)."""
     scene, cam = world.main_scene(dev), world.initial_camera(dev)
     params0 = G.scene_to_params(scene)
     brighter = G.params_to_scene(params0._replace(sphere_illum=params0.sphere_illum * 1.5), scene)
@@ -549,17 +665,22 @@ def training_path(dev) -> dict:
     torch.cuda.synchronize()
 
     out = {}
-    MK.LAUNCHES = V.LAUNCHES = 0
+    reset_parity_launches()
     for (w, h, spp, bounces, steps), (rng, target) in zip(shapes, targets):
         label = f"{w}x{h}_spp{spp}_b{bounces}"
+        # Launches per step: forward, recording forward, backward, per-sample
+        # backward (one sample takes the per-pixel backward).
+        sample = int(spp > 1)
+        per_step = (1, sample, 1, sample)
         params, losses = params0, []
         t0 = time.perf_counter()
         for step in range(steps):
-            before = (MK.LAUNCHES, V.LAUNCHES)
+            before = (MK.LAUNCHES, MK.RECORD_LAUNCHES, V.LAUNCHES, V.SAMPLE_LAUNCHES)
             loss, grads, params = sgd_step(params, scene, cam, target, rng, bounces, spp)
-            if (MK.LAUNCHES - before[0], V.LAUNCHES - before[1]) != (1, 1):
-                raise AssertionError(f"{label} step {step}: launches {before} -> "
-                                     f"{(MK.LAUNCHES, V.LAUNCHES)}, not one of each")
+            after = (MK.LAUNCHES, MK.RECORD_LAUNCHES, V.LAUNCHES, V.SAMPLE_LAUNCHES)
+            if tuple(x - y for x, y in zip(after, before)) != per_step:
+                raise AssertionError(f"{label} step {step}: launches {before} -> {after}, "
+                                     f"not {per_step}")
             bad = [f for f, g in grads._asdict().items() if not torch.isfinite(g).all()]
             if bad:
                 raise AssertionError(f"{label} step {step}: gradients not finite: {bad}")
@@ -571,17 +692,30 @@ def training_path(dev) -> dict:
         if not losses[-1] < losses[0]:
             raise AssertionError(f"{label}: the loss did not fall: {losses}")
         out[label] = {"losses": losses, "wall_s": wall}
-    out["launches"] = {"megakernel": MK.LAUNCHES, "megakernel_vjp": V.LAUNCHES}
+    out["launches"] = parity_launches()
     return out
 
 
+def kernel_resources(tables) -> dict:
+    """Registers, stack bytes and resident warps per SM of the parity
+    kernels' instances that the reference scene's launches take."""
+    geom, _, counts = tables
+    keep = ("instance", "registers", "stack_bytes", "warps_per_sm", "threads", "blocks_per_sm")
+    return {name: {k: r[k] for k in keep} for name, r in (
+        ("megakernel", MK.kernel_resources(geom, counts)),
+        ("megakernel_record", MK.kernel_resources(geom, counts, record=True)),
+        ("megakernel_vjp", V.kernel_resources(geom, counts)),
+        ("megakernel_vjp_sample", V.kernel_resources(geom, counts, per_sample=True)))}
+
+
 def training_times(scenes, dev) -> dict:
-    """Phase 10: fwd+bwd and backward-kernel times at bench.py's shape, SGD
-    steps at both training shapes, and kernel vs plain backward at 128x96."""
+    """Phase 10: the fwd+bwd step at bench.py's shape, both backward
+    kernels alone, ms per SGD step at both shapes, kernel vs plain backward
+    at 128x96, and the kernels' resources."""
     scene, cam = world.main_scene(dev), world.initial_camera(dev)
     tables = (*MK.scene_tables(scene), MK.primitive_counts(scene))
     params = G.scene_to_params(scene)
-    out = {}
+    out = {"resources": kernel_resources(tables)}
 
     w, h, spp, bounces = 512, 512, 64, 8
     rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 0, dev)
@@ -595,23 +729,27 @@ def training_times(scenes, dev) -> dict:
             num_bounces=bounces, spp=spp, has_dielectric=False)
         return torch.autograd.grad(radiance.sum(), leaves, allow_unused=True)
 
-    step = cuda_times(fwd_bwd, 20)
     segments = w * h * spp * bounces
     live = live_segments(rng, MK.launch_kernel(*tables, rays, rng, bounces, spp, False, 3, False)[1])
     ones = torch.ones((h, w, 3), dtype=torch.float32, device=dev)
-    bwd = cuda_times(lambda: V.launch_backward(*tables, rays, rng, ones, bounces, spp, False), 20)
-    # The same work with a zero cotangent: every row cotangent is then zero
-    # and the kernel skips its atomic adds, so the difference is their cost.
     zeros = torch.zeros_like(ones)
-    bwd_no_atomics = cuda_times(
-        lambda: V.launch_backward(*tables, rays, rng, zeros, bounces, spp, False), 20)
-    out["fwd_bwd_512x512_spp64_b8"] = {
-        "step": step,
-        "segments_per_s": segments / (step["median_ms"] / 1e3),
-        "live_segment_share": live / segments,
-        "backward_kernel": bwd,
-        "backward_kernel_zero_cotangent": bwd_no_atomics,
-    }
+    states = MK.launch_kernel(*tables, rays, rng, bounces, spp, False, 3, False, record=True)[2]
+    step = cuda_times(fwd_bwd, 20)
+    rec = {"live_segment_share": live / segments, "step": step,
+           "segments_per_s": segments / (step["median_ms"] / 1e3)}
+    for mode in MODES:
+        samples = states if mode == "sample" else None
+        rec[mode] = {
+            "backward_kernel": cuda_times(
+                lambda: V.launch_backward(*tables, rays, rng, ones, bounces, spp, False, samples), 20),
+            # The same work with a zero cotangent: every row cotangent is
+            # then zero and the kernel skips its atomic adds, so the
+            # difference is their cost.
+            "backward_kernel_zero_cotangent": cuda_times(
+                lambda: V.launch_backward(*tables, rays, rng, zeros, bounces, spp, False, samples), 20),
+        }
+    out["fwd_bwd_512x512_spp64_b8"] = rec
+    del states
 
     brighter = G.params_to_scene(params._replace(sphere_illum=params.sphere_illum * 1.5), scene)
     for w, h, spp, bounces, reps in [(512, 512, 64, 8, 10), (3840, 2160, 1, 4, 5)]:
@@ -629,8 +767,12 @@ def training_times(scenes, dev) -> dict:
     rng = gen_seeds((h, w), 0, dev)
     wts = torch.as_tensor(np.random.default_rng(0).normal(size=(h, w, 3)).astype(np.float32), device=dev)
     tables7 = (*MK.scene_tables(scene7), MK.primitive_counts(scene7))
+    states = MK.launch_kernel(*tables7, rays, rng, bounces, spp, False, 3, False, record=True)[2]
     out["compare_128x96_b4_spp2"] = {
-        "kernel": cuda_times(lambda: V.launch_backward(*tables7, rays, rng, wts, bounces, spp, False), 30),
+        "kernel_sample": cuda_times(
+            lambda: V.launch_backward(*tables7, rays, rng, wts, bounces, spp, False, states), 30),
+        "kernel_pixel": cuda_times(
+            lambda: V.launch_backward(*tables7, rays, rng, wts, bounces, spp, False), 30),
         "plain": cuda_times(lambda: V.backward_reference(*tables7, rays, rng, wts, bounces, spp, False), 3),
     }
     return out
@@ -1803,11 +1945,13 @@ def split_vs_plain(dev, golden) -> dict:
         fwd = strict_check(f"forward big{n} {w}x{h} b4", got, want)
         tables = (*MK.scene_tables(scene), MK.primitive_counts(scene))
         bwd = function_vs_plain(f"backward big{n} 16x16 b2", tables, False,
-                                primary_rays(cam4, 16, 16), gen_seeds((16, 16), n + 1, dev), 2, 1, n, 16)
+                                primary_rays(cam4, 16, 16), gen_seeds((16, 16), n + 1, dev), 2, 2, n, 16)
         large.append({"spheres": n, "table_bytes": table_bytes(tables), "forward": fwd, "backward": bwd})
     out["large_tables"] = large
     out["forward_max_abs_err"] = max(r["forward"]["max_abs_err"] for r in large)
-    out["backward_max_abs_err"] = max(r["backward"]["max_abs_err"] for r in large)
+    out["backward_max_abs_err"] = {
+        m: max(c["max_abs_err"] for r in large for c in r["backward"] if c["mode"] == m)
+        for m in MODES}
     return out
 
 
@@ -2001,7 +2145,8 @@ def main() -> int:
     with ThreadPoolExecutor(len(builds)) as pool:
         done = dict(zip(builds, pool.map(timed_build, builds.values())))
     phase("build", seconds=time.perf_counter() - t0,
-          libraries={k: {"library": lib, "seconds": sec} for k, (lib, sec) in done.items()})
+          libraries={k: {"library": lib, "seconds": sec} for k, (lib, sec) in done.items()},
+          ptxas={"megakernel": ptxas_summary(MK), "megakernel_vjp": ptxas_summary(V)})
 
     # Scenes: the reference, all four kinds (from the golden file's mixed
     # case) and the glass variant, each with its camera.
@@ -2063,14 +2208,14 @@ def main() -> int:
     # 5. The serving path end to end, through the CLI.
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         png, ckpt = os.path.join(tmp, "render.png"), os.path.join(tmp, "state.npz")
-        MK.LAUNCHES = V.LAUNCHES = 0
+        reset_parity_launches()
         t0 = time.perf_counter()
         rc = cli_main([
             "--device", "cuda", "--width", "800", "--height", "600", "--bounces", "15",
             "--spp", "64", "--seed", "0", "--quiet", "--checkpoint", ckpt, "-o", png,
         ])
         wall = time.perf_counter() - t0
-        serving = {"megakernel": MK.LAUNCHES, "megakernel_vjp": V.LAUNCHES}
+        serving = parity_launches()
         acc, _ = load_accumulator(ckpt, "cpu")
         png_bytes = os.path.getsize(png)
     img = acc.image.numpy()
@@ -2105,7 +2250,7 @@ def main() -> int:
            "plain": cuda_times(plain(rays512, rng512, 8, 64), 3)}
     segments = 512 * 512 * 64 * 8
     live = live_segments(rng512, kernel(rays512, rng512, 8, 64)()[1])
-    one = {"kernel": cuda_times(kernel(rays800, rng800, 15, 1), 50),
+    one = {"kernel": cuda_times(kernel(rays800, rng800, 15, 1), 200),
            "plain": cuda_times(plain(rays800, rng800, 15, 1), 11)}
     # The live bounces of each shape by winning row, for the bounds (the
     # 512x512 inputs are phase 7's main-shape case too).
@@ -2138,12 +2283,13 @@ def main() -> int:
     )
 
     # 7-10: the training path.
+    recorded = recording_vs_plain(scenes, dev)
     grad_cases = backward_vs_plain(scenes, dev)
     main_shape = backward_main_shape(tables, rays512, rng512, mix512)
-    grad_cases.append(main_shape["case"])
-    bwd_max_abs_err = max(c["max_abs_err"] for c in grad_cases)
-    phase("backward_vs_plain", max_abs_err=bwd_max_abs_err, cases=grad_cases,
-          main_shape_512x512_spp64_b8={k: v for k, v in main_shape.items() if k != "case"})
+    grad_cases += main_shape["cases"]
+    bwd_err = {m: max(c["max_abs_err"] for c in grad_cases if c["mode"] == m) for m in MODES}
+    phase("backward_vs_plain", max_abs_err=bwd_err, recording=recorded, cases=grad_cases,
+          main_shape_512x512_spp64_b8={k: v for k, v in main_shape.items() if k != "cases"})
     phase("backward_vs_jax_golden", cases=backward_vs_golden(golden, dev))
     training = training_path(dev)
     phase("training_path", **training)
@@ -2187,6 +2333,8 @@ def main() -> int:
     phase("nee_residuals", **residuals)
 
     print(smi)
+    res = times["resources"]
+    main_plain_ms = main_shape["cases"][0]["plain_ms"]
     print(json.dumps({"kernels": [{
         "name": "megakernel",
         "route": "cuda",
@@ -2198,18 +2346,46 @@ def main() -> int:
         "plain_ms": one["plain"]["median_ms"],
         **fwd_bound,
         "library_ms": None,
+        **{k: res["megakernel"][k] for k in RESOURCE_KEYS},
+    }, {
+        "name": "megakernel_record",
+        "route": "cuda",
+        "source": "haskell_path_tracer_torch/csrc/megakernel.cu",
+        "replaces": "haskell_path_tracer_tpu/ops/pallas_megakernel_vjp.py:370",
+        "launches": serving["megakernel_record"] + training["launches"]["megakernel_record"],
+        "max_abs_err": max(c["max_abs_err"] for c in recorded),
+        "ms": main_shape["record"]["median_ms"],
+        "plain_ms": main_shape["record"]["plain_ms"],
+        "bound_ms": main_shape["record"]["bound_ms"],
+        "bound_by": main_shape["record"]["bound_by"],
+        "library_ms": None,
+        **{k: res["megakernel_record"][k] for k in RESOURCE_KEYS},
     }, {
         "name": "megakernel_vjp",
         "route": "cuda",
         "source": "haskell_path_tracer_torch/csrc/megakernel_vjp.cu",
         "replaces": "haskell_path_tracer_tpu/ops/pallas_megakernel_vjp.py:63",
         "launches": serving["megakernel_vjp"] + training["launches"]["megakernel_vjp"],
-        "max_abs_err": max(bwd_max_abs_err, split_rec["backward_max_abs_err"]),
-        "ms": main_shape["kernel"]["median_ms"],
-        "plain_ms": main_shape["case"]["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
+        "max_abs_err": max(bwd_err["pixel"], split_rec["backward_max_abs_err"]["pixel"]),
+        "ms": main_shape["pixel"]["median_ms"],
+        "plain_ms": main_plain_ms,
+        "bound_ms": main_shape["pixel"]["bound_ms"],
+        "bound_by": main_shape["pixel"]["bound_by"],
         "library_ms": None,
+        **{k: res["megakernel_vjp"][k] for k in RESOURCE_KEYS},
+    }, {
+        "name": "megakernel_vjp_sample",
+        "route": "cuda",
+        "source": "haskell_path_tracer_torch/csrc/megakernel_vjp.cu",
+        "replaces": "haskell_path_tracer_tpu/ops/pallas_megakernel_vjp.py:63",
+        "launches": serving["megakernel_vjp_sample"] + training["launches"]["megakernel_vjp_sample"],
+        "max_abs_err": max(bwd_err["sample"], split_rec["backward_max_abs_err"]["sample"]),
+        "ms": main_shape["sample"]["median_ms"],
+        "plain_ms": main_plain_ms,
+        "bound_ms": main_shape["sample"]["bound_ms"],
+        "bound_by": main_shape["sample"]["bound_by"],
+        "library_ms": None,
+        **{k: res["megakernel_vjp_sample"][k] for k in RESOURCE_KEYS},
     }, {
         "name": "nee_megakernel",
         "route": "cuda",

@@ -76,14 +76,30 @@ struct Tables {
   HPT_HD const float* row(int p) const { return geom + p * gcols; }
 };
 
+// The cosines and sines of the half angles of a rotation by Euler angles
+// (roll rx, pitch ry, yaw rz): what angles_to_quat and its adjoint share.
+// sincosf gives the bits of sinf and cosf with one range reduction.
+struct HalfAngles {
+  float cy, sy, cp, sp, cr, sr;
+};
+
+HPT_HD HalfAngles half_angles(float rx, float ry, float rz) {
+  HalfAngles a;
+  sincosf(rz * 0.5f, &a.sy, &a.cy);
+  sincosf(ry * 0.5f, &a.sp, &a.cp);
+  sincosf(rx * 0.5f, &a.sr, &a.cr);
+  return a;
+}
+
+HPT_HD void quat_from(const HalfAngles& a, float* q) {
+  q[0] = a.cy * a.cp * a.cr + a.sy * a.sp * a.sr;
+  q[1] = a.cy * a.cp * a.sr - a.sy * a.sp * a.cr;
+  q[2] = a.sy * a.cp * a.sr + a.cy * a.sp * a.cr;
+  q[3] = a.sy * a.cp * a.cr - a.cy * a.sp * a.sr;
+}
+
 HPT_HD void angles_to_quat(float rx, float ry, float rz, float* q) {
-  float cy = cosf(rz * 0.5f), sy = sinf(rz * 0.5f);
-  float cp = cosf(ry * 0.5f), sp = sinf(ry * 0.5f);
-  float cr = cosf(rx * 0.5f), sr = sinf(rx * 0.5f);
-  q[0] = cy * cp * cr + sy * sp * sr;
-  q[1] = cy * cp * sr - sy * sp * cr;
-  q[2] = sy * cp * sr + cy * sp * cr;
-  q[3] = sy * cp * cr - cy * sp * sr;
+  quat_from(half_angles(rx, ry, rz), q);
 }
 
 // v + w t + u x t with t = 2 (u x v), u = (q1, q2, q3).
@@ -281,40 +297,45 @@ HPT_HD void glass(const float* d, const float* n, float p, float vx,
   G.tinv = G.tq > 1e-20f ? 1.0f / sqrtf(G.tq) : 1e20f;
 }
 
+// The angles and the vector of the one rotation a matte or glossy sample
+// takes: matte turns the normal n by quat(pi v), glossy the mirror
+// direction r = d - 2 (d . n) n by quat((1 - p) v).  `ia` is d . n.
+HPT_HD void rotation_args(const float* n, const float* d, float ia, float p,
+                          bool is_g, const float* v, float* x, float* ang) {
+  const float sp = 1.0f - p;
+  for (int i = 0; i < 3; ++i) {
+    x[i] = is_g ? d[i] - 2.0f * ia * n[i] : n[i];
+    ang[i] = is_g ? sp * v[i] : kPi * v[i];
+  }
+}
+
 // The BRDF sample of `_brdf_sample_from_vec`: the next direction `nd` and
 // the throughput scale, from the normal, the incoming direction, the
-// winner's brdf_param `p` and kind `kd`, and the random vector `v`.
+// winner's brdf_param `p` and kind `kd`, and the random vector `v`.  The
+// TPU kernel computes the matte and the glossy sample and selects one; a
+// thread computes only its winner's, with the same float operations on the
+// value that is used, so the bits are the same.  Matte and glossy lanes of
+// a warp share one rotation (its inputs are selected), so they do not
+// diverge.
 template <bool HAS_DIELECTRIC>
 HPT_HD void brdf_sample(const float* n, const float* d, float p, float kd,
                         const float* v, float* nd, float& scale) {
-  // Matte.
-  float q[4], ang[3];
-  for (int i = 0; i < 3; ++i) ang[i] = kPi * v[i];
-  angles_to_quat(ang[0], ang[1], ang[2], q);
-  float mv[3];
-  quat_rotate(q, n, mv);
-  float m_b = p / kPi * (mv[0] * n[0] + mv[1] * n[1] + mv[2] * n[2]);
-
-  // Glossy.
-  float ia = d[0] * n[0] + d[1] * n[1] + d[2] * n[2];
-  float r[3];
-  for (int i = 0; i < 3; ++i) r[i] = d[i] - 2.0f * ia * n[i];
-  float sp = 1.0f - p;
-  angles_to_quat(sp * v[0], sp * v[1], sp * v[2], q);
-  float gv[3];
-  quat_rotate(q, r, gv);
-  float g_b = fmaxf(0.0f, gv[0] * r[0] + gv[1] * r[1] + gv[2] * r[2]);
-
-  const bool is_g = kd == 1.0f;
-  for (int i = 0; i < 3; ++i) nd[i] = is_g ? gv[i] : mv[i];
-  scale = (is_g ? g_b : m_b) * kInvTwoPi;
-
+  const float ia = d[0] * n[0] + d[1] * n[1] + d[2] * n[2];
   if (HAS_DIELECTRIC && kd == 2.0f) {
     Glass G;
     glass(d, n, p, v[0], G);
-    for (int i = 0; i < 3; ++i) nd[i] = G.take_refl ? r[i] : G.t[i] * G.tinv;
+    for (int i = 0; i < 3; ++i)
+      nd[i] = G.take_refl ? d[i] - 2.0f * ia * n[i] : G.t[i] * G.tinv;
     scale = 1.0f;
+    return;
   }
+  const bool is_g = kd == 1.0f;
+  float x[3], ang[3], q[4];
+  rotation_args(n, d, ia, p, is_g, v, x, ang);
+  angles_to_quat(ang[0], ang[1], ang[2], q);
+  quat_rotate(q, x, nd);
+  const float dt = nd[0] * x[0] + nd[1] * x[1] + nd[2] * x[2];
+  scale = (is_g ? fmaxf(0.0f, dt) : p / kPi * dt) * kInvTwoPi;
 }
 
 // The deterministic Fresnel split of the splitting kernel (split.cu): the
@@ -435,12 +456,11 @@ HPT_HD void quat_rotate_vjp(const float* q, const float* v, const float* go,
   }
 }
 
-// Reverse of angles_to_quat: the angles' cotangents from the quaternion's.
-HPT_HD void angles_to_quat_vjp(const float* ang, const float* gq,
+// Reverse of angles_to_quat: the angles' cotangents from the quaternion's,
+// at the half angles `a` the forward computed.
+HPT_HD void angles_to_quat_vjp(const HalfAngles& a, const float* gq,
                                float* gang) {
-  float cy = cosf(ang[2] * 0.5f), sy = sinf(ang[2] * 0.5f);
-  float cp = cosf(ang[1] * 0.5f), sp = sinf(ang[1] * 0.5f);
-  float cr = cosf(ang[0] * 0.5f), sr = sinf(ang[0] * 0.5f);
+  const float cy = a.cy, sy = a.sy, cp = a.cp, sp = a.sp, cr = a.cr, sr = a.sr;
   const float gw = gq[0], gx = gq[1], gy = gq[2], gz = gq[3];
   float g_cy = gw * cp * cr + gx * cp * sr + gy * sp * cr - gz * sp * sr;
   float g_sy = gw * sp * sr - gx * sp * cr + gy * cp * sr + gz * cp * cr;
@@ -580,29 +600,22 @@ HPT_HD void bounce_vjp(const Tables& T, int best, const float* o,
   const float p = m[4], kd = m[5], il = m[3];
   const int kind = T.kind(best);
 
-  float qm[4], angm[3];
-  for (int i = 0; i < 3; ++i) angm[i] = kPi * v[i];
-  angles_to_quat(angm[0], angm[1], angm[2], qm);
-  float mv[3];
-  quat_rotate(qm, n, mv);
-  const float mdot = mv[0] * n[0] + mv[1] * n[1] + mv[2] * n[2];
-  const float m_b = p / kPi * mdot;
-
-  const float ia = d[0] * n[0] + d[1] * n[1] + d[2] * n[2];
-  float r[3];
-  for (int i = 0; i < 3; ++i) r[i] = d[i] - 2.0f * ia * n[i];
-  const float sp = 1.0f - p;
-  float angg[3] = {sp * v[0], sp * v[1], sp * v[2]};
-  float qg[4];
-  angles_to_quat(angg[0], angg[1], angg[2], qg);
-  float gv[3];
-  quat_rotate(qg, r, gv);
-  const float gdot = gv[0] * r[0] + gv[1] * r[1] + gv[2] * r[2];
-  const float g_b = fmaxf(0.0f, gdot);
-
-  const bool is_g = kd == 1.0f;
+  // The winner's one rotation (brdf_sample), with the half angles its
+  // adjoint reuses.
   const bool is_d = HAS_DIELECTRIC && kd == 2.0f;
-  float scale = is_d ? 1.0f : (is_g ? g_b : m_b) * kInvTwoPi;
+  const bool is_g = kd == 1.0f;
+  const float ia = d[0] * n[0] + d[1] * n[1] + d[2] * n[2];
+  float x[3], q[4], rot[3], rdot = 0.0f;
+  HalfAngles ha{};
+  if (!is_d) {
+    float ang[3];
+    rotation_args(n, d, ia, p, is_g, v, x, ang);
+    ha = half_angles(ang[0], ang[1], ang[2]);
+    quat_from(ha, q);
+    quat_rotate(q, x, rot);
+    rdot = rot[0] * x[0] + rot[1] * x[1] + rot[2] * x[2];
+  }
+  const float scale = is_d ? 1.0f : (is_g ? fmaxf(0.0f, rdot) : p / kPi * rdot) * kInvTwoPi;
 
   // Emission em = (c il) th and next throughput nth = th (c scale).
   float G_scale = 0.0f, G_il = 0.0f;
@@ -638,8 +651,8 @@ HPT_HD void bounce_vjp(const Tables& T, int best, const float* o,
       G_eta += G_k * G.aci;
       float G_aci = G_k * G.eta;
       float G_cost = -G_k;
-      float x = 1.0f - G.sin2;
-      float G_sin2 = x >= 1e-12f ? -G_cost * 0.5f / G.cos_t : 0.0f;
+      float xs = 1.0f - G.sin2;
+      float G_sin2 = xs >= 1e-12f ? -G_cost * 0.5f / G.cos_t : 0.0f;
       G_eta += G_sin2 * (2.0f * G.eta * G.cl);
       float G_cl = G_sin2 * G.eta * G.eta;
       if (1.0f - G.aci * G.aci >= 0.0f) G_aci += G_cl * (-2.0f * G.aci);
@@ -656,29 +669,30 @@ HPT_HD void bounce_vjp(const Tables& T, int best, const float* o,
         G_p -= G_eta / (pc * pc);
       }
     }
-  } else if (is_g) {
-    // nd = rotate(quat((1 - p) v), r), scale = max(0, nd . r) / (2 pi).
-    float G_gv[3] = {G_nd[0], G_nd[1], G_nd[2]};
-    float G_gdot = gdot >= 0.0f ? G_scale * kInvTwoPi : 0.0f;
-    for (int i = 0; i < 3; ++i) {
-      G_gv[i] += G_gdot * r[i];
-      G_r[i] += G_gdot * gv[i];
-    }
-    float G_q[4] = {0.0f, 0.0f, 0.0f, 0.0f}, G_ang[3];
-    quat_rotate_vjp(qg, r, G_gv, G_r, G_q);
-    angles_to_quat_vjp(angg, G_q, G_ang);
-    G_p -= G_ang[0] * v[0] + G_ang[1] * v[1] + G_ang[2] * v[2];
   } else {
-    // nd = rotate(quat(pi v), n), scale = p / pi (nd . n) / (2 pi).
-    float G_mb = G_scale * kInvTwoPi;
-    float G_mdot = G_mb * (p / kPi);
-    G_p += G_mb * mdot * kInvPi;
-    float G_mv[3];
-    for (int i = 0; i < 3; ++i) {
-      G_mv[i] = G_nd[i] + G_mdot * n[i];
-      G_n[i] += G_mdot * mv[i];
+    // nd = rotate(q, x), x = r (glossy) or n (matte).  Glossy: scale =
+    // max(0, nd . r) / (2 pi), q = quat((1 - p) v).  Matte: scale =
+    // p / pi (nd . n) / (2 pi), q = quat(pi v), which p does not move.
+    float G_rdot;
+    if (is_g) {
+      G_rdot = rdot >= 0.0f ? G_scale * kInvTwoPi : 0.0f;
+    } else {
+      const float G_mb = G_scale * kInvTwoPi;
+      G_rdot = G_mb * (p / kPi);
+      G_p += G_mb * rdot * kInvPi;
     }
-    quat_rotate_vjp(qm, n, G_mv, G_n, nullptr);
+    float G_rot[3], G_x[3] = {0.0f, 0.0f, 0.0f}, G_q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int i = 0; i < 3; ++i) {
+      G_rot[i] = G_nd[i] + G_rdot * x[i];
+      G_x[i] += G_rdot * rot[i];
+    }
+    quat_rotate_vjp(q, x, G_rot, G_x, G_q);
+    if (is_g) {
+      float G_ang[3];
+      angles_to_quat_vjp(ha, G_q, G_ang);
+      G_p -= G_ang[0] * v[0] + G_ang[1] * v[1] + G_ang[2] * v[2];
+    }
+    for (int i = 0; i < 3; ++i) (is_g ? G_r : G_n)[i] = G_x[i];
   }
   dm[4] = G_p;
 
@@ -726,50 +740,60 @@ struct Residual {
   int best;
 };
 
-// The whole backward of one pixel: for each of `spp` samples, replay the
-// live bounces (storing their residuals in `st`, which holds at least
+// The backward of one sample: replay its live bounces from the primary ray
+// (po, pd) and `rng` (storing their residuals in `st`, which holds at least
 // `num_bounces`), then sweep them in reverse with the radiance cotangent
 // `g_rad` as the emission cotangent of every bounce.  Adds the primary
-// ray's cotangents into g_o, g_d, and hands each bounce's row cotangents
-// to acc(best, dg, dm).  Returns the final rng (as the forward leaves it).
+// ray's cotangents into g_o, g_d and hands each bounce's row cotangents to
+// acc(b, best, dg, dm); leaves `rng` where the sample left it.
+template <bool HAS_DIELECTRIC, class Acc>
+HPT_HD void sample_backward(const Tables& T, const float* po, const float* pd,
+                            Rng& rng, const float* g_rad, int num_bounces,
+                            Residual* st, float* g_o, float* g_d, Acc& acc) {
+  float o[3] = {po[0], po[1], po[2]}, d[3] = {pd[0], pd[1], pd[2]};
+  float th[3] = {1.0f, 1.0f, 1.0f};
+  int live = 0;
+  for (int b = 0; b < num_bounces; ++b) {
+    float best_t;
+    int best = nearest_hit(T, o, d, best_t);
+    const float q = th[0] * th[0] + th[1] * th[1] + th[2] * th[2];
+    // A dead bounce passes its ray through and zeroes the throughput, so
+    // every later bounce is dead and all their cotangents are zero.
+    if (q <= kNearZeroEps || !(best_t < kInfinite)) break;
+    Residual& r = st[b];
+    for (int i = 0; i < 3; ++i) { r.o[i] = o[i]; r.d[i] = d[i]; r.th[i] = th[i]; }
+    r.best = best;
+    draw_vec(rng, r.v);
+    float no[3], nd[3], nth[3], em[3];
+    shade<HAS_DIELECTRIC>(T, best, best_t, o, d, th, r.v, no, nd, nth, em);
+    for (int i = 0; i < 3; ++i) { o[i] = no[i]; d[i] = nd[i]; th[i] = nth[i]; }
+    live = b + 1;
+  }
+  // Reverse sweep from the last live bounce.
+  float c_o[3] = {0.0f, 0.0f, 0.0f}, c_d[3] = {0.0f, 0.0f, 0.0f},
+        c_t[3] = {0.0f, 0.0f, 0.0f};
+  for (int b = live - 1; b >= 0; --b) {
+    const Residual& r = st[b];
+    float go[3], gd[3], gth[3], dg[12], dm[5];
+    bounce_vjp<HAS_DIELECTRIC>(T, r.best, r.o, r.d, r.th, r.v, c_o, c_d, c_t,
+                               g_rad, go, gd, gth, dg, dm);
+    acc(b, r.best, dg, dm);
+    for (int i = 0; i < 3; ++i) { c_o[i] = go[i]; c_d[i] = gd[i]; c_t[i] = gth[i]; }
+  }
+  for (int i = 0; i < 3; ++i) { g_o[i] += c_o[i]; g_d[i] += c_d[i]; }
+}
+
+// The whole backward of one pixel: its `spp` samples one after another,
+// each from the rng the one before it left.  Returns the final rng (as the
+// forward leaves it).
 template <bool HAS_DIELECTRIC, class Acc>
 HPT_HD Rng pixel_backward(const Tables& T, const float* po, const float* pd,
                           Rng rng, const float* g_rad, int spp,
-                          int num_bounces, Residual* st, float* g_o,
-                          float* g_d, Acc& acc) {
-  for (int s = 0; s < spp; ++s) {
-    float o[3] = {po[0], po[1], po[2]}, d[3] = {pd[0], pd[1], pd[2]};
-    float th[3] = {1.0f, 1.0f, 1.0f};
-    int live = 0;
-    for (int b = 0; b < num_bounces; ++b) {
-      float best_t;
-      int best = nearest_hit(T, o, d, best_t);
-      const float q = th[0] * th[0] + th[1] * th[1] + th[2] * th[2];
-      // A dead bounce passes its ray through and zeroes the throughput, so
-      // every later bounce is dead and all their cotangents are zero.
-      if (q <= kNearZeroEps || !(best_t < kInfinite)) break;
-      Residual& r = st[b];
-      for (int i = 0; i < 3; ++i) { r.o[i] = o[i]; r.d[i] = d[i]; r.th[i] = th[i]; }
-      r.best = best;
-      draw_vec(rng, r.v);
-      float no[3], nd[3], nth[3], em[3];
-      shade<HAS_DIELECTRIC>(T, best, best_t, o, d, th, r.v, no, nd, nth, em);
-      for (int i = 0; i < 3; ++i) { o[i] = no[i]; d[i] = nd[i]; th[i] = nth[i]; }
-      live = b + 1;
-    }
-    // Reverse sweep from the last live bounce.
-    float c_o[3] = {0.0f, 0.0f, 0.0f}, c_d[3] = {0.0f, 0.0f, 0.0f},
-          c_t[3] = {0.0f, 0.0f, 0.0f};
-    for (int b = live - 1; b >= 0; --b) {
-      const Residual& r = st[b];
-      float go[3], gd[3], gth[3], dg[12], dm[5];
-      bounce_vjp<HAS_DIELECTRIC>(T, r.best, r.o, r.d, r.th, r.v, c_o, c_d,
-                                 c_t, g_rad, go, gd, gth, dg, dm);
-      acc(r.best, dg, dm);
-      for (int i = 0; i < 3; ++i) { c_o[i] = go[i]; c_d[i] = gd[i]; c_t[i] = gth[i]; }
-    }
-    for (int i = 0; i < 3; ++i) { g_o[i] += c_o[i]; g_d[i] += c_d[i]; }
-  }
+                          int num_bounces, Residual* st, float* g_o, float* g_d,
+                          Acc& acc) {
+  for (int s = 0; s < spp; ++s)
+    sample_backward<HAS_DIELECTRIC>(T, po, pd, rng, g_rad, num_bounces, st,
+                                    g_o, g_d, acc);
   return rng;
 }
 
@@ -793,6 +817,41 @@ inline size_t smem_optin_bytes() {
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// One template instance of a kernel, named for the resource report.
+struct KernelInstance {
+  const char* name;
+  const void* fn;
+};
+
+// Launches `kernel` (an instance's fn, whose dynamic shared memory the
+// caller allowed) with `args`.
+inline cudaError_t launch_instance(const void* kernel, int blocks, int threads,
+                                   size_t smem, void** args, cudaStream_t stream) {
+  const cudaError_t err =
+      cudaLaunchKernel(kernel, dim3(blocks), dim3(threads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// What the compiler gave `kernel` and what fits on an SM at a launch of
+// `threads` threads with `smem` bytes of dynamic shared memory: out =
+// {registers per thread, local (stack) bytes per thread, static shared
+// bytes, max threads per block, dynamic shared bytes, resident blocks per
+// SM, threads per block}.
+inline void kernel_resources(const void* kernel, int threads, size_t smem, int* out) {
+  cudaFuncAttributes a{};
+  cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  allow_smem(kernel, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  out[4] = (int)smem;
+  out[5] = blocks;
+  out[6] = threads;
 }
 
 // The tables the fold reads: copied into `smem` by the whole block when

@@ -7,11 +7,14 @@ Replaces ``haskell_path_tracer_tpu/ops/pallas_megakernel.py:_megakernel_body``
 `trace_inline_fused_reference`, which follows the TPU kernel's
 ``_bounce_core`` op for op on the same packed tables.
 
-The kernel is bound by fp32 ALU and SFU work: about 6 sin/cos, 1 sqrt and
-7 primitive tests per bounce in the reference scene.  The only memory
+The kernel is bound by fp32 ALU and SFU work: one rotation (3 sincosf), 1
+sqrt and 7 primitive tests per bounce in the reference scene.  The only memory
 traffic is 40 B read and 28 B written per pixel per launch, so its design
 keeps the loop state in registers and the scene tables in shared memory
-(see the note at the top of the CUDA source).
+(see the note at the top of the CUDA source).  Its recording instance, the
+gradient's forward (``ops/megakernel_vjp.py``), also writes every pixel's
+rng at the start of every sample (`sample_states_reference` is its plain
+version).
 
 The kernel is built at first use with nvcc into ``_build/`` beside this
 package (a shared library with a plain C entry point, bound with ctypes)
@@ -49,11 +52,14 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Launches of the CUDA kernel by `trace_inline_fused` (one per call on CUDA
-# tensors).  Callers reset it to 0 to count the launches of a run.
+# Launches of the CUDA kernel by `launch_kernel` (one per call of
+# `trace_inline_fused` on CUDA tensors): LAUNCHES counts every launch,
+# RECORD_LAUNCHES those of the recording instance among them.  Callers
+# reset them to 0 to count the launches of a run.
 LAUNCHES = 0
+RECORD_LAUNCHES = 0
 
 _lib = None
 
@@ -393,6 +399,18 @@ def trace_tables_reference(
     return torch.stack([acc_r, acc_g, acc_b], dim=-1), rng
 
 
+def sample_states_reference(geom, mat, counts, rays: Rays, rng: torch.Tensor,
+                            num_bounces: int, spp: int, has_dielectric: bool):
+    """Plain version of what the recording instance writes: the rng of every
+    pixel at the start of every sample, [H, W, spp, 4] int32."""
+    states = []
+    for _ in range(spp):
+        states.append(rng)
+        _, rng = trace_tables_reference(geom, mat, counts, rays, rng, num_bounces,
+                                        1, False, 3, has_dielectric)
+    return torch.stack(states, dim=2)
+
+
 def trace_inline_fused_reference(
     scene: Scene,
     rays: Rays,
@@ -438,7 +456,9 @@ def library_file(source: str, stem: str, headers=HEADERS) -> str:
 
 def build_library(source: str, stem: str, headers=HEADERS) -> str:
     """Compile `source` for sm_90a unless its library exists; returns its
-    path.  Raises on a failed build."""
+    path.  Raises on a failed build.  What nvcc printed (ptxas's registers,
+    stack frame and spills per kernel, from ``-Xptxas -v``) is kept beside
+    the library as ``<library>.log``."""
     path = library_file(source, stem, headers)
     if os.path.exists(path):
         return path
@@ -452,11 +472,48 @@ def build_library(source: str, stem: str, headers=HEADERS) -> str:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
+        with open(path + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return path
+
+
+def ptxas_report(library: str) -> dict:
+    """What ptxas reported in a built library's log, by mangled function
+    name: registers (kernels), and stack frame, spill stores and spill
+    loads in bytes (kernels and the device functions they call)."""
+    out, entry, prop = {}, None, None
+    with open(library + ".log") as f:
+        for line in f:
+            words = line.replace(",", " ").replace("'", " ").split()
+            if "Compiling entry function" in line:
+                entry = words[words.index("function") + 1]
+            elif "Function properties for" in line:
+                prop = words[-1]
+            elif "bytes stack frame" in line and prop:
+                out.setdefault(prop, {}).update(
+                    stack_bytes=int(words[0]), spill_stores=int(words[4]),
+                    spill_loads=int(words[8]))
+            elif "Used" in line and "registers" in line and entry:
+                out.setdefault(entry, {})["registers"] = int(words[words.index("Used") + 1])
+    return out
+
+
+def resources(fn, *args) -> dict:
+    """Resource use of the kernel instance a launch on `args` takes, through
+    the library's resources entry point `fn`: its name, registers per
+    thread, stack (local) bytes per thread, static and dynamic shared bytes
+    per block, threads per block, and the blocks and warps an SM holds."""
+    out = (ctypes.c_int * 7)()
+    name = ctypes.c_char_p()
+    fn(*args, out, ctypes.byref(name))
+    regs, local, static, _, dynamic, blocks, threads = list(out)
+    return {"instance": name.value.decode(), "registers": regs, "stack_bytes": local,
+            "static_smem": static, "dynamic_smem": dynamic, "threads": threads,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
 
 
 def library_path() -> str:
@@ -477,8 +534,21 @@ def _library():
             vp, i, vp, i, i, i, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp,
         ]
         lib.hpt_megakernel_launch.restype = i
+        lib.hpt_megakernel_record_launch.argtypes = [
+            vp, i, vp, i, i, i, i, vp, vp, vp, vp, vp, vp, i, i, i, i, vp,
+        ]
+        lib.hpt_megakernel_record_launch.restype = i
+        lib.hpt_megakernel_resources.argtypes = [i, i, i, i, vp, vp]
+        lib.hpt_megakernel_resources.restype = None
         _lib = lib
     return _lib
+
+
+def kernel_resources(geom, counts, has_dielectric=False, record=False) -> dict:
+    """What the card gives the forward kernel's instance that a launch on
+    these tables takes, without Russian roulette (`resources`)."""
+    return resources(_library().hpt_megakernel_resources, geom.shape[1], sum(counts),
+                     int(has_dielectric), int(record))
 
 
 def _check(name, t, dtype, shape, device):
@@ -492,14 +562,18 @@ def _check(name, t, dtype, shape, device):
 
 
 def launch_kernel(geom, mat, counts, rays, rng, num_bounces, spp,
-                  russian_roulette, rr_start, has_dielectric):
+                  russian_roulette, rr_start, has_dielectric, record=False):
     """Launch the CUDA kernel on packed tables (`scene_tables`) and the
     per-kind primitive `counts` (spheres, planes, boxes, triangles), of any
     size: the kernel keeps tables up to the card's shared-memory opt-in
     limit in shared memory and reads larger ones from device memory.
     Checks every operand, allocates the outputs, launches on the current
-    stream without synchronising and counts the launch in `LAUNCHES`."""
-    global LAUNCHES
+    stream without synchronising and counts the launch in `LAUNCHES`.
+
+    Returns (radiance, rng_out), and with `record` (the gradient's forward,
+    Russian roulette off) also the rng of every pixel at the start of every
+    sample, [H, W, spp, 4] int32, counted in `RECORD_LAUNCHES` too."""
+    global LAUNCHES, RECORD_LAUNCHES
     device = rng.device
     H, W = rng.shape[:2]
     P = sum(counts)
@@ -512,20 +586,32 @@ def launch_kernel(geom, mat, counts, rays, rng, num_bounces, spp,
         raise ValueError(f"geom has {geom.shape[1]} columns, expected 8 or 16")
     if min(spp, num_bounces) < 0:
         raise ValueError("spp and num_bounces must be >= 0")
+    if record and russian_roulette:
+        raise ValueError("the recording instance runs without Russian roulette")
     radiance = torch.empty((H, W, 3), dtype=torch.float32, device=device)
     rng_out = torch.empty((H, W, 4), dtype=torch.int32, device=device)
     lib = _library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.hpt_megakernel_launch(
-        geom.data_ptr(), geom.shape[1], mat.data_ptr(), *counts,
-        rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
-        radiance.data_ptr(), rng_out.data_ptr(),
-        H * W, spp, num_bounces, int(russian_roulette), rr_start,
-        int(has_dielectric), stream,
-    )
+    operands = (geom.data_ptr(), geom.shape[1], mat.data_ptr(), *counts,
+                rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
+                radiance.data_ptr(), rng_out.data_ptr())
+    if record:
+        samples = torch.empty((H, W, spp, 4), dtype=torch.int32, device=device)
+        err = lib.hpt_megakernel_record_launch(
+            *operands, samples.data_ptr(), H * W, spp, num_bounces,
+            int(has_dielectric), stream,
+        )
+    else:
+        err = lib.hpt_megakernel_launch(
+            *operands, H * W, spp, num_bounces, int(russian_roulette), rr_start,
+            int(has_dielectric), stream,
+        )
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    if record:
+        RECORD_LAUNCHES += 1
+        return radiance, rng_out, samples
     return radiance, rng_out
 
 
