@@ -12,8 +12,11 @@ without printing a result:
      csrc/nee_megakernel.cu (the NEE kernel and the probe),
      csrc/nee_megakernel_vjp.cu (the NEE backward), csrc/sphere_fold.cu
      (the nearest-sphere and dual folds) and csrc/split.cu (deterministic
-     splitting), timed, with what ptxas reported for the parity kernels
-     (registers, stack frame, spills per template instance);
+     splitting), timed, with what ptxas reported for the parity kernels,
+     the NEE kernel's instances and the probe (registers, stack frame,
+     spills per template instance), and the registers, stack bytes and
+     resident warps per SM of the NEE instances and the probe that config
+     4's and config 7's launches take;
   3. forward kernel against its plain PyTorch version on the card, at
      800x600 / 15 bounces / 1 spp, 512x512 / 8 bounces / 4 spp and a
      ragged 333x97, on the reference, mixed-kinds and glass scenes and with
@@ -76,10 +79,17 @@ without printing a result:
      800x600 / 15 bounces / 131 spp, whose 30-sample batch takes the
      presort route (one probe launch);
  15. NEE times: the kernel at configs 6 and 8 (512x512 / 16 spp / 4
-     bounces) and 4 (1920x1088 / 256 spp / 4 bounces, presort on and off)
-     with the live share from the telemetry, the probe alone, the kernel
-     and its plain version at the serving shape (800x600 / 15 / 1 spp),
-     and `Renderer.step` at 1 spp;
+     bounces) and 4 (1920x1088 / 256 spp / 4 bounces, presort on and off,
+     3 calls each) with the live share from the telemetry, the probe
+     alone, the kernel and its plain version at the serving shape
+     (800x600 / 15 / 1 spp), and `Renderer.step` at 1 spp; the warp
+     efficiency (lane-mean live bounces over the warp's cost) at config 4,
+     raster and presorted, and of the recording instance at config 7's
+     1920x1088 / 8 / 4, raster and sorted: of the kernel's flat loop (a
+     warp pays its longest lane's live bounces over all samples) and of a
+     nested sample x bounce loop on the same paths (a warp pays, sample by
+     sample, its longest path), from the telemetry and the recording
+     instance's words;
  16. NEE backward against its plain version: `loss_and_grad(estimator=
      "physical", backend="cuda", light_idx)` in the residual mode (the
      default: the recording forward and the fold-free backward) and in the
@@ -177,8 +187,8 @@ launches on the main paths (phases 5, 9, 14, 19, 23, and 18's dual-query
 route), their times, their plain versions' and their bounds at each path's
 shape (the forward and the NEE kernel at 800x600 / 15 bounces / 1 spp, the
 recording forward and both backward kernels at 512x512 / 64 spp / 8
-bounces, with the parity kernels' registers, stack bytes and resident
-warps per SM, the probe at 800x600 on the
+bounces, with the parity kernels' and the NEE kernel's instances'
+registers, stack bytes and resident warps per SM, the probe at 800x600 on the
 config-4 scene, the NEE kernel's recording instance and the NEE backward
 in both modes at 512x512 / 1 / 4 on config 7's scene, the two folds at
 1920x1088 on it, the splitting kernel at 800x600 / 15 / 1 on config 3's
@@ -305,6 +315,34 @@ def ptxas_summary(mod) -> dict:
         if m:
             out[f"{m.group(1)}<{','.join(re.findall(r'Lb([01])E', m.group(2)))}>"] = rep
     return out
+
+
+def nee_ptxas_summary() -> dict:
+    """What ptxas reported for the NEE kernel's instances, one thread per
+    lane and persistent, <glossy, dielectric, record>, and the probe."""
+    out = {}
+    for fn, rep in MK.ptxas_report(NE.library_path()).items():
+        m = re.search(r"(nee_(?:persistent_)?kernel)I((?:Lb[01]E)+)E", fn)
+        if m:
+            out[f"{m.group(1)}<{','.join(re.findall(r'Lb([01])E', m.group(2)))}>"] = rep
+        elif "probe_kernel" in fn:
+            out["probe_kernel"] = rep
+    return out
+
+
+def nee_kernel_resources(dev) -> dict:
+    """Registers, stack bytes and resident warps per SM of the instances
+    that config 4's and config 7's launches take (1000 spheres, matte): the
+    production instance in raster order, the persistent one presorted, the
+    recording one in the gradient's sorted frame (persistent), and the
+    probe."""
+    tables = NE.nee_scene_tables(SC.big_scene(dev, 1000))
+    keep = ("instance", "registers", "stack_bytes", "warps_per_sm", "threads", "blocks_per_sm")
+    return {name: {k: r[k] for k in keep} for name, r in (
+        ("nee_megakernel", NE.kernel_resources(tables)),
+        ("nee_megakernel_presorted", NE.kernel_resources(tables, persistent=True)),
+        ("nee_megakernel_record", NE.kernel_resources(tables, record=True, persistent=True)),
+        ("primary_probe", NE.kernel_resources(tables, probe=True)))}
 
 
 def phase(label: str, /, **fields) -> None:
@@ -835,6 +873,35 @@ def nee_bound(tables, live, pixels) -> dict:
     return {**bound(NEE_BYTES_PER_PIXEL * pixels + nee_table_bytes(tables), ops), "ops": ops}
 
 
+def warp_efficiency(steps, order=None) -> float:
+    """The NEE kernel's warp efficiency under its flat loop, from the
+    live-bounce telemetry [H, W] in the kernel's lane order (lane i is
+    pixel order[i]): the lane-mean live bounces over the mean, over warps
+    of 32 lanes, of the warp's cost, its longest lane's live bounces (a
+    lane runs one live bounce per step, all its samples in one loop)."""
+    lanes = steps.reshape(-1) if order is None else steps.reshape(-1)[order.long()]
+    warps = lanes[:lanes.numel() // 32 * 32].double().reshape(-1, 32)
+    return (warps.mean() / warps.amax(1).mean()).item()
+
+
+def nested_warp_efficiency(words, spp, bounces) -> float:
+    """What a nested sample x bounce loop would give on the same paths,
+    from the recording instance's words [spp * bounces, lanes]: the
+    lane-mean live bounces over the mean, over warps, of the sum over
+    samples of the warp's longest path in that sample."""
+    n = words.shape[1] // 32 * 32
+    cost = torch.zeros(n // 32, dtype=torch.float64, device=words.device)
+    live = 0.0
+    for s in range(spp):
+        # A path's live words lead its sample's words; what follows its
+        # first dead word is not written.
+        flags = (words[s * bounces:(s + 1) * bounces, :n] & NE.LIVE_BIT) != 0
+        per_lane = torch.cumprod(flags.to(torch.int32), dim=0).sum(0).double()
+        live += per_lane.sum().item()
+        cost += per_lane.reshape(-1, 32).amax(1)
+    return live / n / cost.mean().item()
+
+
 def probe_bound(tables, rays) -> dict:
     n = rays.origin.numel() // 3
     ops = n * sum(c * f for c, f in zip(tables.counts, PRIMARY_FOLD_OPS))
@@ -999,24 +1066,49 @@ def nee_times(dev, smi) -> tuple:
     w, h, spp, b = 1920, 1088, 256, 4
     rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 0, dev)
     tables = NE.nee_scene_tables(scene)
-    live = int(NE.launch_nee(tables, rays, rng, b, spp, False, False, telemetry=True)[2].sum())
+    steps = NE.launch_nee(tables, rays, rng, b, spp, False, False, telemetry=True)[2]
+    live = int(steps.sum())
+    t0, prim0 = NE.launch_probe(tables, rays)
+    order = NE._presort_order(t0)
+    efficiency = {}
+    for frame, extra in (("raster", {}), ("presort", {"order": order, "primary": (t0, prim0)})):
+        words = NE.launch_nee(tables, rays, rng, b, spp, False, False, record=True, **extra)[2]
+        efficiency[frame] = {"flat_loop": warp_efficiency(steps, extra.get("order")),
+                             "nested_loop": nested_warp_efficiency(words, spp, b)}
+        del words
 
     def presorted():
         t0, prim0 = NE.launch_probe(tables, rays)
         return NE.launch_nee(tables, rays, rng, b, spp, False, False, order=NE._presort_order(t0),
                              primary=(t0, prim0))
 
-    raster = cuda_times(lambda: NE.launch_nee(tables, rays, rng, b, spp, False, False), 2)
-    sort = cuda_times(presorted, 2)
-    raster2 = cuda_times(lambda: NE.launch_nee(tables, rays, rng, b, spp, False, False), 2)
+    raster = cuda_times(lambda: NE.launch_nee(tables, rays, rng, b, spp, False, False), 3)
+    sort = cuda_times(presorted, 3)
+    raster2 = cuda_times(lambda: NE.launch_nee(tables, rays, rng, b, spp, False, False), 3)
     probe = cuda_times(lambda: NE.launch_probe(tables, rays), 20)
     out["config4_big1000_1920x1088_spp256_b4"] = {
         "raster": raster, "presort": sort, "raster_again": raster2,
-        "live_share": live / (w * h * spp * b),
+        "live_share": live / (w * h * spp * b), "warp_efficiency": efficiency,
         "rays_per_s_suite_count": w * h * spp * b * 2 / (min(raster["median_ms"], sort["median_ms"]) / 1e3),
         "presort_gate": {"spheres_min": NE.PRESORT_MIN_SPHERES, "spp_min": NE.PRESORT_MIN_SPP},
         **nee_bound(tables, live, w * h)}
     out["probe_config4_1920x1088"] = {"kernel": probe, **probe_bound(tables, rays)}
+
+    # Config 7's larger shape, 1920x1088 / 8 / 4, on the same scene: the
+    # recording instance's warp efficiency in both frames.
+    w, h, spp = 1920, 1088, 8
+    rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 1, dev)
+    t0, prim0 = NE.launch_probe(tables, rays)
+    order = NE._presort_order(t0)
+    efficiency = {}
+    for frame, extra in (("raster", {}), ("sorted", {"order": order, "primary": (t0, prim0)})):
+        steps, words = NE.launch_nee(tables, rays, rng, b, spp, False, False, telemetry=True, record=True,
+                                     **extra)[2:]
+        efficiency[frame] = {"flat_loop": warp_efficiency(steps, extra.get("order")),
+                             "nested_loop": nested_warp_efficiency(words, spp, b)}
+        del words
+    out["config7_1920x1088_spp8_b4_record"] = {"warp_efficiency": efficiency,
+                                               "live_share": int(steps.sum()) / (w * h * spp * b)}
 
     # The serving shape, 800x600 / 15 bounces / 1 spp on the reference
     # scene: the kernel, its plain version and the Renderer step.
@@ -2144,9 +2236,13 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         done = dict(zip(builds, pool.map(timed_build, builds.values())))
-    phase("build", seconds=time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    nee_res = nee_kernel_resources(dev)
+    phase("build", seconds=build_s,
           libraries={k: {"library": lib, "seconds": sec} for k, (lib, sec) in done.items()},
-          ptxas={"megakernel": ptxas_summary(MK), "megakernel_vjp": ptxas_summary(V)})
+          ptxas={"megakernel": ptxas_summary(MK), "megakernel_vjp": ptxas_summary(V),
+                 "nee_megakernel": nee_ptxas_summary()},
+          nee_resources=nee_res)
 
     # Scenes: the reference, all four kinds (from the golden file's mixed
     # case) and the glass variant, each with its camera.
@@ -2395,6 +2491,7 @@ def main() -> int:
         "max_abs_err": nee_err,
         **nee_entries["nee_megakernel"],
         "library_ms": None,
+        **{k: nee_res["nee_megakernel"][k] for k in RESOURCE_KEYS},
     }, {
         "name": "primary_probe",
         "route": "cuda",
@@ -2413,6 +2510,7 @@ def main() -> int:
         "max_abs_err": residuals["max_abs_err"],
         **grad_entries["nee_megakernel_record"],
         "library_ms": None,
+        **{k: nee_res["nee_megakernel_record"][k] for k in RESOURCE_KEYS},
     }, {
         "name": "nee_megakernel_vjp",
         "route": "cuda",

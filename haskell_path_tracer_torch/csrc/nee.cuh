@@ -64,7 +64,9 @@ HPT_HD void cross3(const float* a, const float* b, float* c) {
 // is the fold's own bit for bit.
 
 // A sphere row g = [c, r^2]: the near root tca - sqrt(max(h, 1e-12)), with
-// l = c - o, ll = l.l and the discriminant h = r^2 - (ll - tca^2).
+// l = c - o, ll = l.l and the discriminant h = r^2 - (ll - tca^2).  Where
+// h < 0 (or NaN) the row misses, every caller rejects it, and no square
+// root is taken: kInfinite.  At 1000 spheres nearly every row misses.
 HPT_HD float sphere_root(const float* g, const float* o, const float* d, float* l,
                          float& ll, float& h) {
   l[0] = g[0] - o[0];
@@ -73,8 +75,8 @@ HPT_HD float sphere_root(const float* g, const float* o, const float* d, float* 
   ll = l[0] * l[0] + l[1] * l[1] + l[2] * l[2];
   float tca = l[0] * d[0] + l[1] * d[1] + l[2] * d[2];
   h = g[3] - (ll - tca * tca);
-  float thc = sqrtf(fmaxf(h, 1e-12f));
-  return tca - thc;
+  if (!(h >= 0.0f)) return kInfinite;
+  return tca - sqrtf(fmaxf(h, 1e-12f));
 }
 
 // A plane row [p, n]: (p - o).n / d.n, a zero denominator displaced.
@@ -476,51 +478,116 @@ HPT_HD int residual_word(int prim, bool hit, bool live, bool occ) {
          (occ ? kOccBit : 0);
 }
 
-// `spp` samples of one pixel, summed into acc, from the primary hit
-// (t0, prim0).  Every lane runs its own RNG stream, and each sample restarts
-// from the primary hit, so this one loop gives what the TPU kernel's legacy
-// spp x bounce discipline and its path-regeneration discipline both give,
-// lane for lane.  A path leaves the bounce loop at its first dead bounce
-// (near-zero throughput or a miss): a dead lane keeps its state, draws
-// nothing and adds nothing, so the bounces left would change nothing.
-// `steps` counts the live bounces.  With RECORD the residual word of each
-// (sample s, bounce b) the path reaches, the bounce where it ends included,
-// goes to rec[(s * num_bounces + b) * stride]; later words are not written.
-template <bool HAS_GLOSSY, bool HAS_DIEL, bool RECORD>
-HPT_HD void trace_pixel(const Scene& S, const float* po, const float* pd,
-                        float t0, int prim0, Rng& rng, int spp, int num_bounces,
-                        float* acc, int& steps, int* rec, int stride) {
-  for (int s = 0; s < spp; ++s) {
-    float o[3] = {po[0], po[1], po[2]}, d[3] = {pd[0], pd[1], pd[2]};
-    float t = t0;
-    int prim = prim0;
-    float res[3] = {0.0f, 0.0f, 0.0f}, th[3] = {1.0f, 1.0f, 1.0f};
-    bool prev_spec = true;  // camera rays see lights
-    for (int bounce = 0; bounce < num_bounces; ++bounce) {
-      int* word = RECORD ? rec + (size_t)(s * num_bounces + bounce) * stride : nullptr;
-      if (dead_bounce(th, t)) {
-        if (RECORD) *word = residual_word(prim, t < kInfinite, false, false);
-        break;
-      }
-      ++steps;
-      Draws dr;
-      const int winner = prim;
-      live_bounce<HAS_GLOSSY, HAS_DIEL>(S, o, d, t, prim, th, prev_spec, rng, res, dr);
-      if (RECORD) *word = residual_word(winner, true, true, dr.occ);
-    }
-    for (int i = 0; i < 3; ++i) acc[i] = acc[i] + res[i];
+// One lane of the flat sample loop (nee_pixel): its primary ray and hit,
+// the path in flight (ray, winner, throughput, radiance, whether the last
+// bounce was specular), the sample s and bounce b it is at, the radiance
+// banked from the samples it finished, its live bounces and its RNG stream.
+struct Lane {
+  float po[3], pd[3], t0;
+  int prim0;
+  float o[3], d[3], t, th[3], res[3], acc[3];
+  int prim;
+  bool prev_spec;
+  int s, b, steps;
+  Rng rng;
+};
+
+// Starts the lane's current sample at its primary hit.
+HPT_HD void restart(Lane& L) {
+  for (int i = 0; i < 3; ++i) {
+    L.o[i] = L.po[i];
+    L.d[i] = L.pd[i];
+    L.th[i] = 1.0f;
+    L.res[i] = 0.0f;
   }
+  L.t = L.t0;
+  L.prim = L.prim0;
+  L.prev_spec = true;  // camera rays see lights
+  L.b = 0;
 }
 
-// One pixel q of the NEE kernel: its primary hit (from the probe's t0_in and
-// prim0_in when given, else folded here), its samples, its outputs; with
-// RECORD its residual words at rec, `stride` apart.
-template <bool HAS_GLOSSY, bool HAS_DIEL, bool RECORD = false>
-HPT_HD void nee_pixel(const Scene& S, int q, const float* origin,
-                      const float* direction, const uint32_t* rng_in,
-                      const float* t0_in, const int* prim0_in, float* radiance,
-                      uint32_t* rng_out, int* steps, int spp, int num_bounces,
-                      int* rec = nullptr, int stride = 0) {
+// The residual word of (sample s, bounce b) of the lane whose words start
+// at rec, `stride` apart (nee_megakernel.cu's [spp * bounces, n] layout).
+HPT_HD int* word_at(int* rec, int s, int b, int num_bounces, int stride) {
+  return rec + (size_t)(s * num_bounces + b) * stride;
+}
+
+// Sets a lane up at its first sample, from the primary hit (t0, prim0).
+// Returns whether it has a live bounce to trace: a lane whose primary ray
+// misses completes all its samples here (each adds nothing and draws
+// nothing; with RECORD each writes its dead bounce-0 word), as does a lane
+// with no samples or no bounces.
+template <bool RECORD>
+HPT_HD bool lane_start(Lane& L, const float* po, const float* pd, float t0, int prim0,
+                       const Rng& rng, int spp, int num_bounces, int* rec, int stride) {
+  for (int i = 0; i < 3; ++i) {
+    L.po[i] = po[i];
+    L.pd[i] = pd[i];
+    L.acc[i] = 0.0f;
+  }
+  L.t0 = t0;
+  L.prim0 = prim0;
+  L.rng = rng;
+  L.steps = 0;
+  L.s = 0;
+  restart(L);
+  if (spp <= 0 || num_bounces <= 0) return false;
+  if (t0 < kInfinite) return true;
+  if (RECORD)
+    for (int s = 0; s < spp; ++s)
+      *word_at(rec, s, 0, num_bounces, stride) = residual_word(prim0, false, false, false);
+  return false;
+}
+
+// The first half of a step of the flat loop: a path that has ended (a
+// dead bounce, or its bounce budget used up) banks its sample's radiance
+// and restarts the next sample from the primary hit, whose bounce 0 is
+// live.  Returns whether the lane has a live bounce to run: false once it
+// has banked its last sample.  With RECORD the path's dead word is written
+// at the bounce where it ends; a path that uses its whole budget writes
+// none.
+template <bool RECORD>
+HPT_HD bool lane_next(Lane& L, int spp, int num_bounces, int* rec, int stride) {
+  if (L.b < num_bounces && !dead_bounce(L.th, L.t)) return true;
+  if (RECORD && L.b < num_bounces)
+    *word_at(rec, L.s, L.b, num_bounces, stride) =
+        residual_word(L.prim, L.t < kInfinite, false, false);
+  for (int i = 0; i < 3; ++i) L.acc[i] = L.acc[i] + L.res[i];
+  if (++L.s == spp) return false;
+  restart(L);
+  return true;
+}
+
+// The second half: the lane's live bounce, its word (live) with RECORD.
+template <bool HAS_GLOSSY, bool HAS_DIEL, bool RECORD>
+HPT_HD void lane_bounce(const Scene& S, Lane& L, int num_bounces, int* rec, int stride) {
+  ++L.steps;
+  Draws dr;
+  const int winner = L.prim;
+  live_bounce<HAS_GLOSSY, HAS_DIEL>(S, L.o, L.d, L.t, L.prim, L.th, L.prev_spec, L.rng,
+                                    L.res, dr);
+  if (RECORD)
+    *word_at(rec, L.s, L.b, num_bounces, stride) = residual_word(winner, true, true, dr.occ);
+  ++L.b;
+}
+
+// One step of the flat loop: lane_next, then lane_bounce.  Returns false,
+// with nothing run, once the lane has banked its last sample.
+template <bool HAS_GLOSSY, bool HAS_DIEL, bool RECORD>
+HPT_HD bool lane_step(const Scene& S, Lane& L, int spp, int num_bounces, int* rec,
+                      int stride) {
+  if (!lane_next<RECORD>(L, spp, num_bounces, rec, stride)) return false;
+  lane_bounce<HAS_GLOSSY, HAS_DIEL, RECORD>(S, L, num_bounces, rec, stride);
+  return true;
+}
+
+// Starts a lane on pixel q (lane_start): its primary ray, its primary hit
+// (from the probe's t0_in and prim0_in when given, else folded here) and its
+// rng; with RECORD its residual words at rec, `stride` apart.
+template <bool RECORD>
+HPT_HD bool pixel_start(const Scene& S, Lane& L, int q, const float* origin,
+                        const float* direction, const uint32_t* rng_in, const float* t0_in,
+                        const int* prim0_in, int spp, int num_bounces, int* rec, int stride) {
   const float po[3] = {origin[3 * q], origin[3 * q + 1], origin[3 * q + 2]};
   const float pd[3] = {direction[3 * q], direction[3 * q + 1], direction[3 * q + 2]};
   float t0;
@@ -531,17 +598,48 @@ HPT_HD void nee_pixel(const Scene& S, int q, const float* origin,
   } else {
     primary_hit(S, po, pd, t0, prim0);
   }
-  Rng rng{rng_in[4 * q], rng_in[4 * q + 1], rng_in[4 * q + 2], rng_in[4 * q + 3]};
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  int n_steps = 0;
-  trace_pixel<HAS_GLOSSY, HAS_DIEL, RECORD>(S, po, pd, t0, prim0, rng, spp, num_bounces,
-                                            acc, n_steps, rec, stride);
-  for (int i = 0; i < 3; ++i) radiance[3 * q + i] = acc[i];
-  rng_out[4 * q] = rng.a;
-  rng_out[4 * q + 1] = rng.b;
-  rng_out[4 * q + 2] = rng.c;
-  rng_out[4 * q + 3] = rng.ctr;
-  if (steps != nullptr) steps[q] = n_steps;
+  const Rng rng{rng_in[4 * q], rng_in[4 * q + 1], rng_in[4 * q + 2], rng_in[4 * q + 3]};
+  return lane_start<RECORD>(L, po, pd, t0, prim0, rng, spp, num_bounces, rec, stride);
+}
+
+// Writes a lane's outputs, all its samples banked, as pixel q's.
+HPT_HD void pixel_store(const Lane& L, int q, float* radiance, uint32_t* rng_out, int* steps) {
+  for (int i = 0; i < 3; ++i) radiance[3 * q + i] = L.acc[i];
+  rng_out[4 * q] = L.rng.a;
+  rng_out[4 * q + 1] = L.rng.b;
+  rng_out[4 * q + 2] = L.rng.c;
+  rng_out[4 * q + 3] = L.rng.ctr;
+  if (steps != nullptr) steps[q] = L.steps;
+}
+
+// One pixel q of the NEE kernel: `spp` samples from its primary hit, each
+// restarting there, their radiance summed, as one flat loop of lane_step,
+// the TPU kernel's path-regeneration discipline (ops/pallas_nee.py:
+// 938-1016) for one lane.  Every step runs one live bounce, so a warp pays
+// for the live bounces of its longest lane over all its samples (the max
+// over lanes of the sum over samples), where a loop over samples with the
+// bounces nested inside pays, sample by sample, for the longest path among
+// its lanes (the sum over samples of the max over lanes): on suite config
+// 4's scene, where most paths end after a bounce or two and a few lanes of
+// a warp still run a fourth, the flat loop's warps cost about two thirds
+// of the nested loop's.
+// Each lane draws its RNG stream and banks its samples in the nested
+// loop's order, so radiance, rng, `steps` (the live bounces) and, with
+// RECORD, the residual word of each (sample s, bounce b) the path reaches,
+// the bounce where it ends included, at rec[(s * num_bounces + b) * stride],
+// are the nested loop's bit for bit; later words are not written.
+template <bool HAS_GLOSSY, bool HAS_DIEL, bool RECORD = false>
+HPT_HD void nee_pixel(const Scene& S, int q, const float* origin,
+                      const float* direction, const uint32_t* rng_in,
+                      const float* t0_in, const int* prim0_in, float* radiance,
+                      uint32_t* rng_out, int* steps, int spp, int num_bounces,
+                      int* rec = nullptr, int stride = 0) {
+  Lane L;
+  if (pixel_start<RECORD>(S, L, q, origin, direction, rng_in, t0_in, prim0_in, spp,
+                          num_bounces, rec, stride))
+    while (lane_step<HAS_GLOSSY, HAS_DIEL, RECORD>(S, L, spp, num_bounces, rec, stride)) {
+    }
+  pixel_store(L, q, radiance, rng_out, steps);
 }
 
 }  // namespace nee

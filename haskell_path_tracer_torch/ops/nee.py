@@ -22,12 +22,17 @@ operations against ~300 for the shading and the light sample.  Device
 memory traffic is 40 B in and 28 B out per pixel per launch.  The fold
 tables sit in shared memory when they fit in 48 KB (about 3000 spheres)
 and are otherwise read through the L1 cache, where every lane of a warp
-reads the same row.
+reads the same row.  Each thread runs its pixel's samples as one flat loop
+of live bounces (a path that ends restarts the next sample from the
+primary hit), so a warp waits for its longest lane over all samples, not
+for each sample's longest path.
 
 Presort (`presort=True`): the probe's t0 is argsorted (sky last, stable)
-and the NEE kernel takes the order as an int32 lane map, thread i working
+and the NEE kernel takes the order as an int32 lane map, lane i working
 on pixel order[i] and reading the probe's (t0, prim0) instead of folding:
-per pixel the results are bit-identical to raster order.
+per pixel the results are bit-identical to raster order.  With the
+probe's hits the kernel's persistent instance runs, its threads taking
+lane indices from a counter until they run out.
 """
 
 from __future__ import annotations
@@ -60,8 +65,8 @@ OCC_BIT, HIT_BIT, LIVE_BIT, PRIM_SHIFT = 1, 2, 4, 3
 
 # presort=None takes the presort from PRESORT_MIN_SPHERES spheres and
 # PRESORT_MIN_SPP samples on (the JAX package's gate), where the H100
-# measured it faster: on suite config 4's scene the depth order keeps the
-# lanes of a warp on paths of like length (PERF.md).
+# measured it faster: on suite config 4's scene 1334 ms presorted (the
+# persistent instance) against 1690 ms in raster order (PERF.md).
 PRESORT_MIN_SPHERES, PRESORT_MIN_SPP = 64, 8
 
 _lib = None
@@ -184,14 +189,31 @@ def _library():
         lib.hpt_nee_launch.argtypes = [
             vp, vp, vp, i, i, i, i, i,  # tables, counts, lights
             vp, vp, vp, vp, vp, vp,  # origin, direction, rng, t0, prim0, order
-            vp, vp, vp, vp,  # radiance, rng_out, steps, words
+            vp, vp, vp, vp, vp,  # radiance, rng_out, steps, words, next_lane
             i, i, i, i, i, vp,
         ]
         lib.hpt_nee_launch.restype = i
         lib.hpt_probe_launch.argtypes = [vp, i, i, i, i, vp, vp, vp, vp, i, vp]
         lib.hpt_probe_launch.restype = i
+        lib.hpt_nee_resources.argtypes = [i, i, i, i, i, i, vp, vp]
+        lib.hpt_nee_resources.restype = i
         _lib = lib
     return _lib
+
+
+def kernel_resources(tables: NeeTables, has_glossy=False, has_diel=False, record=False,
+                     persistent=False, probe=False) -> dict:
+    """What the card gives the NEE kernel's instance (or with `probe` the
+    probe) that a launch on these tables takes (`ops/megakernel.py:resources`):
+    with `persistent` the instance that launches with the probe's primary
+    hits take.  Raises when the card refuses the query."""
+    def query(*args):
+        err = _library().hpt_nee_resources(*args)
+        if err != 0:
+            raise RuntimeError(f"NEE kernel resource query failed: cudaError {err}")
+
+    return MK.resources(query, tables.fold.numel(), int(has_glossy), int(has_diel), int(record),
+                        int(persistent), int(probe))
 
 
 def _check_tables(tables: NeeTables, device):
@@ -263,13 +285,16 @@ def launch_nee(tables: NeeTables, rays: Rays, rng, num_bounces, spp, has_glossy=
     steps = torch.empty((H, W), dtype=torch.int32, device=device) if telemetry else None
     words = (torch.empty((spp * num_bounces, H * W), dtype=torch.int32, device=device)
              if record else None)
+    # With the probe's primary hits the persistent instance runs: its
+    # threads take lane indices from this counter.
+    next_lane = torch.zeros(1, dtype=torch.int32, device=device) if primary is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _library().hpt_nee_launch(
         tables.fold.data_ptr(), tables.payload.data_ptr(), tables.lights.data_ptr(),
         *tables.counts, tables.num_lights,
         rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
         _ptr(t0), _ptr(prim0), _ptr(order),
-        radiance.data_ptr(), rng_out.data_ptr(), _ptr(steps), _ptr(words),
+        radiance.data_ptr(), rng_out.data_ptr(), _ptr(steps), _ptr(words), _ptr(next_lane),
         H * W, spp, num_bounces, int(has_glossy), int(has_diel), stream,
     )
     if err != 0:

@@ -11,9 +11,22 @@ equal and its t within 1e-6 relative (the host's sinf/cosf differ from
 PyTorch's in the last bit; nothing else differs), and the presort order
 bit-identical to raster order.  On the card, `chip_smoke.py` runs the same
 checks against the CUDA build.
+
+The kernel's flat sample loop (`nee.cuh:lane_step`, one live bounce per
+step, a path that ends restarting the next sample from the primary hit)
+runs here in lockstep over 32-lane groups, so that the lanes of a group sit
+at different samples as a warp's do, and is held bit for bit against the
+nested sample x bounce loop it replaced (kept in the harness as the
+oracle): radiance, rng, live bounces and every residual word of the
+recording instance, over spp 1-8 and bounces 1-6, with sky lanes, paths
+that use their whole bounce budget and paths whose throughput falls to
+near zero.
 """
 
 import ctypes
+import dataclasses
+import importlib.util
+import os
 import shutil
 import subprocess
 
@@ -56,6 +69,9 @@ def lib(tmp_path_factory):
     lib.hpt_nee_host.restype = None
     lib.hpt_probe_host.argtypes = [vp, i, i, i, i, vp, vp, vp, vp, i]
     lib.hpt_probe_host.restype = None
+    lib.hpt_nee_loop_host.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp, vp, vp, vp, vp, vp, vp,
+                                      i, i, i, i, i]
+    lib.hpt_nee_loop_host.restype = ctypes.c_long
     return lib
 
 
@@ -127,3 +143,124 @@ def test_probe_and_presort(lib, name):
     presorted = _host_nee(lib, tables, rays, rng, 3, 2, kinds, primary=(t0, prim0), order=order)
     for a, b in zip(raster, presorted):
         assert torch.equal(a, b)
+
+
+def _dimmed_big(device):
+    """The 300-sphere scene with a third of its spheres black and a third
+    at colour 5e-4 (throughput quadrance 7.5e-7, under the near-zero 1e-6):
+    paths end on near-zero throughput as well as on misses and budget."""
+    scene = S.big_scene(device, 300)
+    m = scene.spheres.material
+    color = m.color.clone()
+    color[0::3] = 0.0
+    color[1::3] = 5e-4
+    return dataclasses.replace(scene, spheres=dataclasses.replace(
+        scene.spheres, material=dataclasses.replace(m, color=color)))
+
+
+LOOP_SCENES = {**SCENES, "dimmed300": (_dimmed_big, SCENES["big300"][1])}
+UNWRITTEN = 0x5A5A5A58  # no live bit: a word neither loop may touch
+
+
+def _loop(lib, flat, tables, rays, rng, spp, bounces, kinds, record):
+    rad = torch.empty(H, W, 3)
+    rng_out = torch.empty(H, W, 4, dtype=torch.int32)
+    steps = torch.empty(H, W, dtype=torch.int32)
+    words = torch.full((spp * bounces, H * W), UNWRITTEN, dtype=torch.int32) if record else None
+    mixed = lib.hpt_nee_loop_host(
+        _p(tables.fold), _p(tables.payload), _p(tables.lights), *tables.counts, tables.num_lights,
+        flat, _p(rays.origin), _p(rays.direction), _p(rng), _p(rad), _p(rng_out), _p(steps),
+        _p(words), H * W, spp, bounces, int(1 in kinds), int(2 in kinds))
+    return (rad, rng_out, steps) + ((words,) if record else ()), mixed
+
+
+def _ends(words, spp, bounces):
+    """Samples (over lanes) that end on a primary miss, on a later miss, on
+    near-zero throughput, and by using the whole bounce budget."""
+    w = words.reshape(spp, bounces, -1)
+    live, hit = (w & NE.LIVE_BIT) != 0, (w & NE.HIT_BIT) != 0
+    dead = NE.written_words(words, spp, bounces).reshape(spp, bounces, -1) & ~live
+    return {"sky": int((dead[:, 0] & ~hit[:, 0]).sum()), "miss": int((dead[:, 1:] & ~hit[:, 1:]).sum()),
+            "near_zero": int((dead & hit).sum()), "budget": int(live.all(1).sum())}
+
+
+@pytest.mark.parametrize("spp", range(1, 9))
+@pytest.mark.parametrize("name", list(LOOP_SCENES))
+def test_flat_loop_matches_nested_loop(lib, name, spp):
+    """The flat loop, in lockstep over 32-lane groups, against the nested
+    loop: radiance, rng and live bounces of both instances, and every
+    residual word of the recording one (the unwritten ones included), bit
+    for bit, at 1-6 bounces."""
+    build, pose = LOOP_SCENES[name]
+    scene = build("cpu")
+    cam = world.initial_camera("cpu") if pose is None else Camera.create(*pose, 90.0, "cpu")
+    rays, rng = primary_rays(cam, W, H), gen_seeds((H, W), 59 + spp, "cpu")
+    tables, kinds = NE.nee_scene_tables(scene), _present_kinds(scene)
+    ends = dict.fromkeys(("sky", "miss", "near_zero", "budget"), 0)
+    mixed = 0
+    for bounces in range(1, 7):
+        for record in (False, True):
+            want, _ = _loop(lib, 0, tables, rays, rng, spp, bounces, kinds, record)
+            got, rounds = _loop(lib, 1, tables, rays, rng, spp, bounces, kinds, record)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), f"{bounces} bounces, record {record}"
+            mixed += rounds
+        for k, v in _ends(want[3], spp, bounces).items():
+            ends[k] += v
+    assert want[2].sum() > 0
+    present = {k for k, v in ends.items() if v}
+    assert "budget" in present
+    if name in ("glassy", "box_tri", "big300", "dimmed300"):
+        # Paths of unequal length: the lanes of a group part samples.
+        assert {"sky", "miss"} <= present
+        assert mixed > 0 or spp == 1
+    if name == "dimmed300":
+        assert "near_zero" in present
+
+
+def test_flat_loop_writes_every_sky_sample(lib):
+    """A lane whose primary ray misses completes all its samples without a
+    bounce, and the recording instance writes each sample's dead bounce-0
+    word (the winner prim0, no flag), as the nested loop does: the backward
+    reads that word to end each sample's replay."""
+    build, pose = LOOP_SCENES["dimmed300"]
+    scene = build("cpu")
+    rays, rng = primary_rays(Camera.create(*pose, 90.0, "cpu"), W, H), gen_seeds((H, W), 61, "cpu")
+    tables, kinds = NE.nee_scene_tables(scene), _present_kinds(scene)
+    spp, bounces = 5, 3
+    t0, prim0 = NE.primary_probe(tables, rays)
+    sky = (t0 >= INFINITE).reshape(-1)
+    assert 0 < sky.sum() < H * W
+    (rad, rng_out, steps, words), _ = _loop(lib, 1, tables, rays, rng, spp, bounces, kinds, True)
+    first = words.reshape(spp, bounces, -1)[:, 0, sky]
+    assert torch.equal(first, (prim0.reshape(-1)[sky] << NE.PRIM_SHIFT).expand(spp, -1))
+    assert (words.reshape(spp, bounces, -1)[:, 1:, sky] == UNWRITTEN).all()
+    assert (steps.reshape(-1)[sky] == 0).all() and (rad.reshape(-1, 3)[sky] == 0).all()
+    assert torch.equal(rng_out.reshape(-1, 4)[sky], rng.reshape(-1, 4)[sky])
+    want, _ = _loop(lib, 0, tables, rays, rng, spp, bounces, kinds, True)
+    assert torch.equal(words, want[3])
+
+
+def test_warp_efficiency_forms(lib):
+    """`chip_smoke.py`'s warp efficiencies on the flat loop's telemetry and
+    words: one sample gives the flat and the nested form the same value,
+    and over several the flat loop's (max over lanes of the sum over
+    samples) is never below the nested loop's (sum of maxes)."""
+    path = os.path.join(os.path.dirname(MK.CSRC), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    build, pose = LOOP_SCENES["dimmed300"]
+    scene = build("cpu")
+    rays, rng = primary_rays(Camera.create(*pose, 90.0, "cpu"), W, H), gen_seeds((H, W), 67, "cpu")
+    tables, kinds = NE.nee_scene_tables(scene), _present_kinds(scene)
+    eff = {}
+    for spp in (1, 6):
+        (_, _, steps, words), _ = _loop(lib, 1, tables, rays, rng, spp, 4, kinds, True)
+        eff[spp] = smoke.warp_efficiency(steps), smoke.nested_warp_efficiency(words, spp, 4)
+        assert all(0.0 < e <= 1.0 for e in eff[spp])
+        order = torch.randperm(H * W, generator=torch.Generator().manual_seed(spp)).to(torch.int32)
+        lanes = steps.reshape(-1)[order.long()]
+        assert smoke.warp_efficiency(steps, order) == smoke.warp_efficiency(lanes)
+    assert eff[1][0] == pytest.approx(eff[1][1], rel=1e-12)
+    assert eff[6][0] > eff[6][1]

@@ -6,7 +6,7 @@ them with g++ (FMA contraction off, as nvcc's ``-fmad=false``; its build
 counts every call of ``fold``) and these tests check, on every lane of
 several scenes:
 
-  * `trace_pixel` with RECORD writes the plain version's residual words
+  * `nee_pixel` with RECORD writes the plain version's residual words
     (`ops/nee.py:trace_physical_nee_reference(residuals=True)`) on every
     word the kernel writes, under the lane-parity contract of
     `tests/test_pallas_nee.py:assert_lane_parity` (at most 0.5% of lanes
