@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's six CUDA libraries from ``haskell_path_tracer_torch/csrc``
-(one nvcc each, started together) and runs twenty-five phases, each
+(one nvcc each, started together) and runs twenty-six phases, each
 printing one line; any failure raises and the script exits non-zero
 without printing a result:
 
@@ -11,7 +11,8 @@ without printing a result:
   2. build: nvcc of csrc/megakernel.cu, csrc/megakernel_vjp.cu,
      csrc/nee_megakernel.cu (the NEE kernel and the probe),
      csrc/nee_megakernel_vjp.cu (the NEE backward), csrc/sphere_fold.cu
-     (the nearest-sphere and dual folds) and csrc/split.cu (deterministic
+     (the nearest-sphere and dual folds, + sphere_fold.cuh) and
+     csrc/split.cu (deterministic
      splitting), timed, with what ptxas reported for the parity kernels,
      the NEE kernel's instances and the probe (registers, stack frame,
      spills per template instance), and the registers, stack bytes and
@@ -106,10 +107,16 @@ without printing a result:
      raster one; the kernel refuses 17 bounces;
  17. the kernel route against the JAX package's gradients
      (tests/data/torch_port_nee_grad_golden.npz);
- 18. the nearest-sphere and dual-fold kernels against their plain versions
-     (1000 spheres at 1920x1088, 20000 at 320x180, bit for bit),
-     `trace_physical(fused=True)` against the plain loop, and the
-     `light_idx=None` gradient route, counted from 0, against
+ 18. the nearest-sphere and dual-fold kernels against their plain versions,
+     bit for bit (t, prim, occ): 1000 spheres at 1920x1088 and 20000 at
+     320x180 (config 4's scene), and synthetic tables of 1, 129, 3073 (past
+     the old 48 KB) and 14529 spheres (past 227 KB) with duplicated rows
+     (exact ties), at ray counts that are no multiple of rays per thread x
+     block (the nearest fold at 2 and at 1 ray per thread), at eps 0 and at
+     a distance one ray meets exactly, with dead lanes, every lane dead and
+     every lane alive, and a table followed by its own copy (every tie to
+     the first copy); `trace_physical(fused=True)` against the plain loop,
+     and the `light_idx=None` gradient route, counted from 0, against
      backend="torch";
  19. the physical training path, counted from 0: SGD through
      `loss_and_grad(estimator="physical", light_idx)` on suite config 7's
@@ -130,8 +137,10 @@ without printing a result:
      1 / 4 (both frames, the plain over row tiles: autograd of the plain
      trace, and of the word replay) and on a full-width strip of 1920x1088
      / 8 / 4 (the kernel launched on the whole image with the cotangent
-     zero outside the strip), and timed with them at 512x512; the two folds at 1920x1088 x 1000 spheres, with their
-     bounds;
+     zero outside the strip), and timed with them at 512x512; the two folds
+     at 1920x1088 x 1000 spheres and 320x180 x 20000, with their bounds and
+     the registers, stack bytes and resident warps per SM of the instance
+     each launch takes;
  21. the splitting kernel against its plain version (`trace_split_reference`)
      on the card: config 3's glass scene at 512x512 / 8 b / 4 spp, the
      reference scene at 800x600 / 15 / 1, a ragged 333x97, stack depths 1,
@@ -161,7 +170,13 @@ without printing a result:
      glassy) and at config 7's two shapes; its residual words in the
      sorted frame the raster frame's in lane order; its words against the
      plain version's under lane parity on the golden cases and at
-     512x512 / 1 / 4.
+     512x512 / 1 / 4;
+ 26. the paths that launch the two folds at the shapes users run, timed:
+     the `light_idx=None` physical SGD step on config 4's scene at config
+     7's 512x512 / 1 / 4 and 1920x1088 / 8 / 4, spp nearest and spp x
+     bounces dual folds per step, and the non-split wavefront `Renderer.step` on that scene at
+     800x600 / 15 / 1, a nearest fold per bounce, with the launches counted
+     from 0 and the SGD steps' peak device memory.
 
 Lane tolerance of the forward (tests/test_pallas.py): >= 99.5% of lanes
 with equal rng words, >= 99% of color values isclose at rtol = atol =
@@ -183,15 +198,16 @@ cotangents per lane, off on at most 0.5% of lanes.  The dual-query route:
 rtol 5e-4, atol 5e-6 (tests/test_grad.py).
 
 The line before the last is a JSON object of the kernels with their
-launches on the main paths (phases 5, 9, 14, 19, 23, and 18's dual-query
-route), their times, their plain versions' and their bounds at each path's
+launches on the main paths (phases 5, 9, 14, 19, 23, 18's dual-query
+route and 26's fold routes), their times, their plain versions' and their bounds at each path's
 shape (the forward and the NEE kernel at 800x600 / 15 bounces / 1 spp, the
 recording forward and both backward kernels at 512x512 / 64 spp / 8
 bounces, with the parity kernels' and the NEE kernel's instances'
 registers, stack bytes and resident warps per SM, the probe at 800x600 on the
 config-4 scene, the NEE kernel's recording instance and the NEE backward
 in both modes at 512x512 / 1 / 4 on config 7's scene, the two folds at
-1920x1088 on it, the splitting kernel at 800x600 / 15 / 1 on config 3's
+1920x1088 on it with their registers, stack bytes and resident warps per
+SM, the splitting kernel at 800x600 / 15 / 1 on config 3's
 glass scene); the last line is {"ok": true, "device": {...}}.
 """
 
@@ -214,13 +230,14 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))  # fold_cases: phase 18's tables and rays
 
 from haskell_path_tracer_torch.app.main import main as cli_main  # noqa: E402
 from haskell_path_tracer_torch.diff import grad as G  # noqa: E402
 from haskell_path_tracer_torch.models import convert as C  # noqa: E402
 from haskell_path_tracer_torch.models import world  # noqa: E402
 from haskell_path_tracer_torch.models.camera import primary_rays  # noqa: E402
-from haskell_path_tracer_torch.models.objects import Camera, Rays  # noqa: E402
+from haskell_path_tracer_torch.models.objects import Camera, Rays, Spheres  # noqa: E402
 from haskell_path_tracer_torch.ops import megakernel as MK  # noqa: E402
 from haskell_path_tracer_torch.ops import megakernel_vjp as V  # noqa: E402
 from haskell_path_tracer_torch.ops import nee as NE  # noqa: E402
@@ -245,6 +262,7 @@ from haskell_path_tracer_torch.ops.rng import gen_seeds, gen_vec  # noqa: E402
 from haskell_path_tracer_torch.render.renderer import Renderer  # noqa: E402
 from haskell_path_tracer_torch.utils.checkpoint import load_accumulator  # noqa: E402
 from haskell_path_tracer_torch.utils.config import RenderConfig  # noqa: E402
+from fold_cases import edge_rays, edge_spheres  # noqa: E402
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
 NEE_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_nee_golden.npz")
 RNG_MIN, CLOSE_MIN = 0.995, 0.99
@@ -390,6 +408,17 @@ def cuda_times(fn, reps: int) -> dict:
     if 2 * k > reps:
         out[f"p{100 * k // reps}_ms"] = ms[k - 1]
     return out
+
+
+def cuda_once(fn) -> dict:
+    """One call of `fn` on CUDA events, with no warm-up, in ms."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return {"n": 1, "median_ms": start.elapsed_time(end)}
 
 
 def live_segments(rng_in, rng_out) -> float:
@@ -1404,6 +1433,77 @@ def nearest_plain(scene, o, d, eps=0.0):
     return torch.cat([t for t, _ in parts]), torch.cat([p for _, p in parts]).to(torch.int32)
 
 
+# Phase 18's synthetic fold cases: tables of 1, 129, 3073 (just past the 48
+# KB that static shared memory held) and 14529 spheres (just past the 227 KB
+# a block can hold), rows P // 2 and P - 1 repeating rows 1 and 0 (exact
+# ties); ray counts that are no multiple of rays per thread x block (the
+# nearest fold takes 2 rays per thread at the first two on an H100, 1 at
+# the last).
+FOLD_EDGE_SPHERES = (1, 129, 3073, 14529)
+FOLD_EDGE_RAYS = (270413, 135213, 10007)
+
+
+def fold_edge_checks(dev) -> dict:
+    """The two fold kernels against their plain versions, bit for bit, on
+    the synthetic tables: per table and ray count the nearest fold at eps 0
+    and at a distance one ray meets exactly (t == eps), and the dual fold
+    with 30% of its lanes dead; per table, the dual fold with every lane
+    dead and every lane alive; and a table followed by its own copy (3074
+    rows, the copies in different tiles), whose every tie goes to the first
+    copy."""
+    out = {}
+
+    def held(label, got, want):
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{label}: the kernel differs from its plain version")
+        return {"bit_equal": True, "hit_share": (want[0] < INFINITE).double().mean().item()}
+
+    def dual_plain(pos, radius, args):
+        return SF.sphere_dual_reference(*args, pos, radius)
+
+    for P in FOLD_EDGE_SPHERES:
+        pos, radius = edge_spheres(P, P, dev)
+        table, spheres = SF.sphere_table(pos, radius), Spheres(pos=pos, radius=radius, material=None)
+        rays = edge_rays(pos, radius, FOLD_EDGE_RAYS[0], P + 1)
+        t0 = sphere_nearest_chunked(rays[0][:256], rays[1][:256], spheres)[0]
+        edge_eps = float(t0[t0 < INFINITE].max()) if (t0 < INFINITE).any() else 0.0
+        for n in FOLD_EDGE_RAYS:
+            args = tuple(a[:n].contiguous() for a in rays)
+            rec = {"instances": {k: SF.kernel_resources(k == "dual", n, P)["instance"]
+                                 for k in ("nearest", "dual")}}
+            for eps in (0.0, edge_eps):
+                want = sphere_nearest_chunked(args[0], args[1], spheres, eps)
+                rec[f"nearest_eps_{eps}"] = held(f"nearest fold, {P} spheres, {n} rays, eps {eps}",
+                                                 SF.launch_nearest_fold(table, args[0], args[1], eps),
+                                                 (want[0], want[1].to(torch.int32)))
+            rec["dual"] = held(f"dual fold, {P} spheres, {n} rays", SF.launch_dual_fold(table, *args),
+                               dual_plain(pos, radius, args))
+            out[f"{P}_spheres_{n}_rays"] = rec
+        for label, alive in (("all_dead", torch.zeros_like(rays[5])), ("all_alive", torch.ones_like(rays[5]))):
+            args = rays[:5] + (alive,)
+            got = SF.launch_dual_fold(table, *args)
+            out[f"{P}_spheres_dual_{label}"] = held(f"dual fold, {P} spheres, {label}", got,
+                                                    dual_plain(pos, radius, args))
+            if label == "all_dead" and not ((got[0] == INFINITE).all() and (got[1] == 0).all()
+                                            and not got[2].any()):
+                raise AssertionError("dual fold: a dead lane is not (INFINITE, 0, False)")
+    pos, radius = edge_spheres(1537, 7, dev)
+    pos, radius = torch.cat([pos, pos]), torch.cat([radius, radius])
+    table, spheres = SF.sphere_table(pos, radius), Spheres(pos=pos, radius=radius, material=None)
+    rays = edge_rays(pos, radius, FOLD_EDGE_RAYS[0], 8)
+    want = sphere_nearest_chunked(rays[0], rays[1], spheres, EPSILON)
+    rec = {"nearest": held("nearest fold, doubled table", SF.launch_nearest_fold(
+        table, rays[0], rays[1], EPSILON), (want[0], want[1].to(torch.int32))),
+        "dual": held("dual fold, doubled table", SF.launch_dual_fold(table, *rays),
+                     dual_plain(pos, radius, rays))}
+    hit = want[0] < INFINITE
+    if not hit.any() or (want[1][hit] >= 1537).any():
+        raise AssertionError("doubled table: a tie went to the second copy")
+    out["doubled_3074_spheres"] = rec
+    return out
+
+
 def fold_checks(dev) -> dict:
     """Phase 18: the nearest-sphere kernel (the camera rays, eps = 0, and
     the first bounce's BSDF rays, eps = EPSILON) and the dual-fold kernel
@@ -1487,6 +1587,7 @@ def fold_checks(dev) -> dict:
                                                 for f in G.SceneParams._fields if getattr(g_t, f).numel())})
     out["gradient_route_light_idx_none"] = routes
     out["launches"] = {k: routes[0]["launches"][k] for k in ("nearest_fold", "dual_fold")}
+    out["edge_cases"] = fold_edge_checks(dev)
     return {"max_abs_err": max_abs, "nearest_max_abs_err": nearest_abs, **out}
 
 
@@ -1823,34 +1924,41 @@ def physical_training_times(dev, smi) -> tuple:
         del words
     out[f"backward_vs_plain_{w}x{h}_spp{spp}_b4_rows{strip.start}_{strip.stop}"] = strip_rec = rec
 
-    # The two folds at 1920x1088 x 1000 spheres: the nearest fold on the
-    # camera rays (the dual-query trace's primary hit), the dual fold at the
-    # first bounce.
-    rays = primary_rays(cam, 1920, 1088)
-    o, d = rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)
-    table = SF.sphere_table(scene.spheres.pos, scene.spheres.radius)
-    n, P = o.shape[0], scene.spheres.count
-    nearest_ops = n * P * PRIMARY_FOLD_OPS[0]
-    out["nearest_fold_1920x1088_1000_spheres"] = {
-        "kernel": cuda_times(lambda: SF.launch_nearest_fold(table, o, d), 20),
-        "plain": cuda_times(lambda: nearest_plain(scene, o, d), 2),
-        **bound(PROBE_BYTES_PER_RAY * n + 4 * table.numel(), nearest_ops), "ops": nearest_ops}
-    args = dual_inputs(scene, li, 1920, 1088, 20, dev)
-    alive = int(args[5].sum())
-    dual_ops = alive * P * DUAL_FOLD_OPS[0]
-    out["dual_fold_1920x1088_1000_spheres"] = {
-        "kernel": cuda_times(lambda: SF.launch_dual_fold(table, *args), 20),
-        "plain": cuda_times(lambda: [SF.sphere_dual_reference(*(a[s:s + (1 << 18)] for a in args),
-                                                               scene.spheres.pos, scene.spheres.radius)
-                                     for s in range(0, n, 1 << 18)], 2),
-        "alive_share": alive / n,
-        **bound(DUAL_BYTES_PER_RAY * n + 4 * table.numel(), dual_ops), "ops": dual_ops}
+    # The two folds at 1920x1088 x 1000 spheres and 320x180 x 20000 (phase
+    # 18's shapes): the nearest fold on the camera rays (the dual-query
+    # trace's primary hit), the dual fold at the first bounce; with the
+    # registers, stack bytes and resident warps per SM of the instance each
+    # launch takes.
+    for n_spheres, w, h in ((1000, 1920, 1088), (20000, 320, 180)):
+        fscene = scene if n_spheres == 1000 else SC.big_scene(dev, n_spheres)
+        rays = primary_rays(cam, w, h)
+        o, d = rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)
+        table = SF.sphere_table(fscene.spheres.pos, fscene.spheres.radius)
+        n, P = o.shape[0], fscene.spheres.count
+        nearest_ops = n * P * PRIMARY_FOLD_OPS[0]
+        out[f"nearest_fold_{w}x{h}_{P}_spheres"] = {
+            "kernel": cuda_times(lambda: SF.launch_nearest_fold(table, o, d), 20),
+            "plain": cuda_times(lambda: nearest_plain(fscene, o, d), 2),
+            **bound(PROBE_BYTES_PER_RAY * n + 4 * table.numel(), nearest_ops), "ops": nearest_ops,
+            "resources": SF.kernel_resources(False, n, P)}
+        args = dual_inputs(fscene, NE.scene_light_indices(fscene), w, h, 20, dev)
+        alive = int(args[5].sum())
+        dual_ops = alive * P * DUAL_FOLD_OPS[0]
+        out[f"dual_fold_{w}x{h}_{P}_spheres"] = {
+            "kernel": cuda_times(lambda: SF.launch_dual_fold(table, *args), 20),
+            "plain": cuda_times(lambda: [SF.sphere_dual_reference(*(a[s:s + (1 << 18)] for a in args),
+                                                                   fscene.spheres.pos, fscene.spheres.radius)
+                                         for s in range(0, n, 1 << 18)], 2),
+            "alive_share": alive / n,
+            **bound(DUAL_BYTES_PER_RAY * n + 4 * table.numel(), dual_ops), "ops": dual_ops,
+            "resources": SF.kernel_resources(True, n, P)}
     main = out["backward_vs_plain_512x512_spp1_b4"]
     dual = out["dual_fold_1920x1088_1000_spheres"]
     nearest = out["nearest_fold_1920x1088_1000_spheres"]
     entries = {
         "nearest_fold": {"ms": nearest["kernel"]["median_ms"], "plain_ms": nearest["plain"]["median_ms"],
-                         "bound_ms": nearest["bound_ms"], "bound_by": nearest["bound_by"]},
+                         "bound_ms": nearest["bound_ms"], "bound_by": nearest["bound_by"],
+                         **{k: nearest["resources"][k] for k in RESOURCE_KEYS}},
         "nee_megakernel_vjp": {"ms": main["kernel"]["median_ms"], "plain_ms": main["plain"]["median_ms"],
                                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                                "max_abs_err": max(r["max_abs_err"] for v in out.values()
@@ -1866,7 +1974,8 @@ def physical_training_times(dev, smi) -> tuple:
             "ms": main["record"]["kernel"]["median_ms"], "plain_ms": main["record"]["plain"]["median_ms"],
             "bound_ms": main["record"]["bound_ms"], "bound_by": main["record"]["bound_by"]},
         "dual_fold": {"ms": dual["kernel"]["median_ms"], "plain_ms": dual["plain"]["median_ms"],
-                      "bound_ms": dual["bound_ms"], "bound_by": dual["bound_by"]},
+                      "bound_ms": dual["bound_ms"], "bound_by": dual["bound_by"],
+                      **{k: dual["resources"][k] for k in RESOURCE_KEYS}},
     }
     return out, entries
 
@@ -1933,6 +2042,61 @@ def nee_residuals(dev) -> dict:
         cases.append(rec)
         del words
     return {"max_abs_err": max_abs, "cases": cases}
+
+
+def fold_route_steps(dev) -> dict:
+    """The paths that launch the two folds at the shapes users run: the
+    `light_idx=None` physical SGD step on config 4's scene at config 7's two
+    shapes (backend auto: the dual-query route, spp nearest folds and spp x
+    bounces dual folds per gradient), and the non-split wavefront
+    `Renderer.step` on the same scene at 800x600 / 15 bounces / 1 spp (a
+    nearest fold per bounce).  By label: the step, the spp it runs, and the
+    folds' launches in one step, counted from 0."""
+    scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+    params = G.scene_to_params(scene)
+    out = {}
+    for w, h, spp, bounces, _ in CONFIG7:
+        rng, target = gen_seeds((h, w), 1, dev), torch.zeros((h, w, 3), device=dev)
+
+        def step(spp=spp, rng=rng, target=target, bounces=bounces):
+            grads = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
+                                    estimator="physical")[1]
+            return sgd_update(params, grads, LR_FIELDS)
+
+        SF.LAUNCHES.update(nearest_fold=0, dual_fold=0)
+        step()
+        torch.cuda.synchronize()
+        out[f"sgd_light_idx_none_{w}x{h}_b{bounces}"] = {
+            "step": step, "spp": spp, "launches": dict(SF.LAUNCHES)}
+    renderer = Renderer(RenderConfig(algorithm="wavefront", bounces=15, device="cuda"))
+    acc = renderer.init_accumulator(seed=0)
+    SF.LAUNCHES.update(nearest_fold=0, dual_fold=0)
+    renderer.step(scene, cam, acc, spp=1)
+    out["wavefront_step_1000_spheres_800x600_b15"] = {
+        "step": lambda: renderer.step(scene, cam, acc, spp=1), "spp": 1, "launches": dict(SF.LAUNCHES)}
+    return out
+
+
+def fold_route_times(dev, smi) -> dict:
+    """Phase 26: `fold_route_steps` timed on CUDA events, with their
+    launches per step, which must be the routes' (spp nearest and spp x
+    bounces dual folds per gradient; a nearest fold per bounce), and the
+    peak device memory of the SGD steps."""
+    out = {"nvidia_smi": smi}
+    for label, r in fold_route_steps(dev).items():
+        bounces = 15 if label.startswith("wavefront") else 4
+        want = ({"nearest_fold": bounces, "dual_fold": 0} if label.startswith("wavefront")
+                else {"nearest_fold": r["spp"], "dual_fold": r["spp"] * bounces})
+        if r["launches"] != want:
+            raise AssertionError(f"{label}: fold launches {r['launches']}, not {want}")
+        torch.cuda.reset_peak_memory_stats()
+        # The 1920x1088 step takes seconds: one call, warmed by the run
+        # that counted its launches.
+        timed = cuda_once(r["step"]) if "1920x1088" in label else cuda_times(r["step"], 20)
+        out[label] = {**timed, "spp": r["spp"],
+                      "launches_per_step": r["launches"],
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return out
 
 
 # The wavefront integrator and deterministic splitting (phases 21-24).
@@ -2428,6 +2592,12 @@ def main() -> int:
     residuals = nee_residuals(dev)
     phase("nee_residuals", **residuals)
 
+    # 26: the paths that launch the two folds, timed.
+    route_times = fold_route_times(dev, smi)
+    phase("fold_route_times", **route_times)
+    route_launches = {k: sum(r["launches_per_step"][k] for r in route_times.values() if isinstance(r, dict))
+                      for k in ("nearest_fold", "dual_fold")}
+
     print(smi)
     res = times["resources"]
     main_plain_ms = main_shape["cases"][0]["plain_ms"]
@@ -2535,7 +2705,7 @@ def main() -> int:
         "route": "cuda",
         "source": "haskell_path_tracer_torch/csrc/sphere_fold.cu",
         "replaces": "haskell_path_tracer_tpu/ops/pallas_intersect.py:186",
-        "launches": folds["launches"]["dual_fold"],
+        "launches": folds["launches"]["dual_fold"] + route_launches["dual_fold"],
         "max_abs_err": folds["max_abs_err"],
         **grad_entries["dual_fold"],
         "library_ms": None,
@@ -2544,7 +2714,8 @@ def main() -> int:
         "route": "cuda",
         "source": "haskell_path_tracer_torch/csrc/sphere_fold.cu",
         "replaces": "haskell_path_tracer_tpu/ops/pallas_intersect.py:35",
-        "launches": folds["launches"]["nearest_fold"] + wavefront["launches"]["nearest_fold"],
+        "launches": (folds["launches"]["nearest_fold"] + wavefront["launches"]["nearest_fold"]
+                     + route_launches["nearest_fold"]),
         "max_abs_err": folds["nearest_max_abs_err"],
         **grad_entries["nearest_fold"],
         "library_ms": None,

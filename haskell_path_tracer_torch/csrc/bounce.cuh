@@ -838,12 +838,14 @@ inline cudaError_t launch_instance(const void* kernel, int blocks, int threads,
 // `threads` threads with `smem` bytes of dynamic shared memory: out =
 // {registers per thread, local (stack) bytes per thread, static shared
 // bytes, max threads per block, dynamic shared bytes, resident blocks per
-// SM, threads per block}.
+// SM, threads per block}.  Raises the kernel's dynamic shared-memory limit
+// to `smem` where it is lower, and never lowers it, so that a later launch
+// on larger tables is not refused.
 inline void kernel_resources(const void* kernel, int threads, size_t smem, int* out) {
   cudaFuncAttributes a{};
   cudaFuncGetAttributes(&a, kernel);
   int blocks = 0;
-  allow_smem(kernel, smem);
+  if (smem > (size_t)a.maxDynamicSharedSizeBytes) allow_smem(kernel, smem);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;

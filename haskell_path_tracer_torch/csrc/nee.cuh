@@ -63,20 +63,59 @@ HPT_HD void cross3(const float* a, const float* b, float* c) {
 // winner_t) shares so that the distance it recomputes for a fold's winner
 // is the fold's own bit for bit.
 
+// The parts of `sphere_root`, for a fold that takes the rare branch
+// (h >= 0) itself (sphere_fold.cuh): l = c - o and tca = l.d; ll = l.l and
+// h; the near root.
+HPT_HD float sphere_tca(const float* g, const float* o, const float* d, float* l) {
+  l[0] = g[0] - o[0];
+  l[1] = g[1] - o[1];
+  l[2] = g[2] - o[2];
+  return l[0] * d[0] + l[1] * d[1] + l[2] * d[2];
+}
+
+HPT_HD float sphere_h(const float* g, const float* l, float tca, float& ll) {
+  ll = l[0] * l[0] + l[1] * l[1] + l[2] * l[2];
+  return g[3] - (ll - tca * tca);
+}
+
+HPT_HD float sphere_near(float tca, float h) { return tca - sqrtf(fmaxf(h, 1e-12f)); }
+
 // A sphere row g = [c, r^2]: the near root tca - sqrt(max(h, 1e-12)), with
 // l = c - o, ll = l.l and the discriminant h = r^2 - (ll - tca^2).  Where
 // h < 0 (or NaN) the row misses, every caller rejects it, and no square
 // root is taken: kInfinite.  At 1000 spheres nearly every row misses.
 HPT_HD float sphere_root(const float* g, const float* o, const float* d, float* l,
                          float& ll, float& h) {
-  l[0] = g[0] - o[0];
-  l[1] = g[1] - o[1];
-  l[2] = g[2] - o[2];
-  ll = l[0] * l[0] + l[1] * l[1] + l[2] * l[2];
-  float tca = l[0] * d[0] + l[1] * d[1] + l[2] * d[2];
-  h = g[3] - (ll - tca * tca);
+  const float tca = sphere_tca(g, o, d, l);
+  h = sphere_h(g, l, tca, ll);
   if (!(h >= 0.0f)) return kInfinite;
-  return tca - sqrtf(fmaxf(h, 1e-12f));
+  return sphere_near(tca, h);
+}
+
+// The halves of `sphere_blocks`, for a fold that takes the rare branch
+// (h2 >= 0) itself (sphere_fold.cuh): tca2 = l.b and h2; the test.
+HPT_HD float sphere_shadow_h(const float* g, const float* l, float ll, const float* b,
+                             float& tca2) {
+  tca2 = l[0] * b[0] + l[1] * b[1] + l[2] * b[2];
+  return g[3] - (ll - tca2 * tca2);
+}
+
+HPT_HD bool sphere_blocks_from(float tca2, float h2, float t_l) {
+  float a1 = tca2 - kEpsilon;
+  float a2 = tca2 - t_l;
+  return h2 >= 0.0f && a1 >= 0.0f && a1 * a1 >= h2 && (a2 < 0.0f || a2 * a2 < h2);
+}
+
+// Whether the sphere row g blocks [EPSILON, t_l) along the unit b from the
+// origin o of `sphere_root`'s ray, from its l = c - o and ll = l.l: the
+// sqrt-free shadow test, a1 = tca2 - EPSILON >= 0 with a1^2 >= h2 (the near
+// root at or past EPSILON) and the near root before t_l.  The NEE folds
+// (`fold<true>`) and the dual fold (sphere_fold.cuh) share it.
+HPT_HD bool sphere_blocks(const float* g, const float* l, float ll, const float* b,
+                          float t_l) {
+  float tca2;
+  const float h2 = sphere_shadow_h(g, l, ll, b, tca2);
+  return sphere_blocks_from(tca2, h2, t_l);
 }
 
 // A plane row [p, n]: (p - o).n / d.n, a zero denominator displaced.
@@ -163,12 +202,8 @@ HPT_HD void fold(const Scene& S, const float* o, const float* d, float eps,
       best_p = p;
     }
     if (SHADOW) {
-      float tca2 = l[0] * b[0] + l[1] * b[1] + l[2] * b[2];
-      float h2 = g[3] - (ll - tca2 * tca2);
-      float a1 = tca2 - kEpsilon;
-      float a2 = tca2 - t_l;
-      occ = occ || (h2 >= 0.0f && a1 >= 0.0f && a1 * a1 >= h2 &&
-                    (a2 < 0.0f || a2 * a2 < h2) && p != lgi);
+      const bool blocks = sphere_blocks(g, l, ll, b, t_l);
+      occ = occ || (blocks && p != lgi);
     }
   }
   int base = S.ns;

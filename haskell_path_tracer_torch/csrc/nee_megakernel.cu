@@ -320,11 +320,8 @@ extern "C" int hpt_probe_launch(const float* fold, int num_spheres,
 // fold tables takes (bounce.cuh:kernel_resources): out[7], and its name;
 // probe != 0 asks for the probe, else the NEE kernel's instance by kinds,
 // record and persistent (the instance launches with the probe's primary
-// hits take).  The query sets the instance's dynamic shared memory limit to
-// these tables' bytes; it is put back to kSmemTableBytes, the most a launch
-// asks for, without which a later launch on larger tables fails.  Returns
-// cudaGetLastError() (0 = answered), which also clears the error for the
-// next launch's check.
+// hits take).  Returns cudaGetLastError() (0 = answered), which also
+// clears the error for the next launch's check.
 extern "C" int hpt_nee_resources(int fold_floats, int has_glossy, int has_diel,
                                  int record, int persistent, int probe, int* out,
                                  const char** name) {
@@ -335,6 +332,5 @@ extern "C" int hpt_nee_resources(int fold_floats, int has_glossy, int has_diel,
                          (record ? 1 : 0)];
   *name = k.name;
   kernel_resources(k.fn, probe ? kThreads : kNeeThreads, smem, out);
-  allow_smem(k.fn, kSmemTableBytes);
   return static_cast<int>(cudaGetLastError());
 }

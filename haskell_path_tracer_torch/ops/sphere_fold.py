@@ -13,9 +13,11 @@ Counterpart of ``haskell_path_tracer_tpu/ops/pallas_intersect.py``:
     sphere table answers both the BSDF ray's nearest sphere and the shadow
     ray's occlusion from a shared shade point.
 
-Both kernels are hand-written CUDA C++ in ``csrc/sphere_fold.cu``, built at
-first use with nvcc like the other kernels (`ops/megakernel.py:
-build_library`); on CPU tensors the plain versions,
+Both kernels are hand-written CUDA C++ in ``csrc/sphere_fold.cu`` (the
+per-ray work in ``csrc/sphere_fold.cuh``: several rays per thread, the
+table streamed through shared memory in tiles, the dual fold over its
+compacted live lanes), built at first use with nvcc like the other kernels
+(`ops/megakernel.py:build_library`); on CPU tensors the plain versions,
 `ops/intersect.py:sphere_nearest_chunked` and `sphere_dual_reference`, run
 instead.  Nothing falls back: a failed build or launch raises.
 
@@ -45,7 +47,7 @@ from .intersect import (
 from ..models.objects import Spheres
 
 SOURCE = os.path.join(MK.CSRC, "sphere_fold.cu")
-HEADERS = (os.path.join(MK.CSRC, "nee.cuh"), os.path.join(MK.CSRC, "bounce.cuh"))
+HEADERS = tuple(os.path.join(MK.CSRC, h) for h in ("sphere_fold.cuh", "nee.cuh", "bounce.cuh"))
 
 # Launches of each kernel by `launch_nearest_fold` and `launch_dual_fold`.
 # Callers reset the counts to 0 to count the launches of a run.
@@ -69,13 +71,29 @@ def _library():
         lib = ctypes.CDLL(build())
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.hpt_dual_fold_launch.argtypes = [
-            vp, i, vp, vp, vp, vp, vp, vp, ctypes.c_float, vp, vp, vp, i, vp,
+            vp, i, vp, vp, vp, vp, vp, vp, ctypes.c_float, vp, vp, vp, vp, i, vp,
         ]
         lib.hpt_dual_fold_launch.restype = i
         lib.hpt_nearest_fold_launch.argtypes = [vp, i, vp, vp, ctypes.c_float, vp, vp, i, vp]
         lib.hpt_nearest_fold_launch.restype = i
+        lib.hpt_sphere_fold_resources.argtypes = [i, i, i, vp, vp]
+        lib.hpt_sphere_fold_resources.restype = i
         _lib = lib
     return _lib
+
+
+def kernel_resources(dual: bool, num_rays: int, num_spheres: int) -> dict:
+    """What the card gives the fold instance that a launch of the dual
+    (else the nearest) fold on num_rays rays and num_spheres spheres takes
+    (`ops/megakernel.py:resources`)."""
+    return MK.resources(_library().hpt_sphere_fold_resources, int(dual), num_rays, num_spheres)
+
+
+def _check_table(spheres, device):
+    MK._check("spheres", spheres, torch.float32, (spheres.shape[0], 4), device)
+    if spheres.data_ptr() % 16:
+        raise ValueError("spheres: the kernels copy rows 16 bytes at a time; "
+                         "pass a 16-byte-aligned table (`sphere_table`)")
 
 
 def sphere_table(pos, radius) -> torch.Tensor:
@@ -93,7 +111,7 @@ def launch_nearest_fold(spheres, ray_o, ray_d, eps: float = 0.0):
         raise ValueError(f"launch_nearest_fold takes CUDA tensors, not {device}")
     r = ray_o.shape[0]
     P = spheres.shape[0]
-    MK._check("spheres", spheres, torch.float32, (P, 4), device)
+    _check_table(spheres, device)
     MK._check("ray_o", ray_o, torch.float32, (r, 3), device)
     MK._check("ray_d", ray_d, torch.float32, (r, 3), device)
     t = torch.empty(r, dtype=torch.float32, device=device)
@@ -119,7 +137,7 @@ def launch_dual_fold(spheres, ray_o, d_bsdf, d_shadow, t_light, light_idx, alive
         raise ValueError(f"launch_dual_fold takes CUDA tensors, not {device}")
     r = ray_o.shape[0]
     P = spheres.shape[0]
-    MK._check("spheres", spheres, torch.float32, (P, 4), device)
+    _check_table(spheres, device)
     for name, t in (("ray_o", ray_o), ("d_bsdf", d_bsdf), ("d_shadow", d_shadow)):
         MK._check(name, t, torch.float32, (r, 3), device)
     MK._check("t_light", t_light, torch.float32, (r,), device)
@@ -128,10 +146,11 @@ def launch_dual_fold(spheres, ray_o, d_bsdf, d_shadow, t_light, light_idx, alive
     t = torch.empty(r, dtype=torch.float32, device=device)
     prim = torch.empty(r, dtype=torch.int32, device=device)
     occ = torch.empty(r, dtype=torch.int32, device=device)
+    live = torch.empty(r + 1, dtype=torch.int32, device=device)  # the live lanes' count and list
     err = _library().hpt_dual_fold_launch(
         spheres.data_ptr(), P, ray_o.data_ptr(), d_bsdf.data_ptr(), d_shadow.data_ptr(),
         t_light.data_ptr(), light_idx.data_ptr(), alive.data_ptr(), eps,
-        t.data_ptr(), prim.data_ptr(), occ.data_ptr(), r,
+        t.data_ptr(), prim.data_ptr(), occ.data_ptr(), live.data_ptr(), r,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
