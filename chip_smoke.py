@@ -15,8 +15,9 @@ without printing a result:
      csrc/split.cu (deterministic
      splitting), timed, with what ptxas reported for the parity kernels,
      the NEE kernel's instances and the probe (registers, stack frame,
-     spills per template instance), and the registers, stack bytes and
-     resident warps per SM of the NEE instances and the probe that config
+     spills per template instance; the NEE backward's instances too), and
+     the registers, stack bytes and resident warps per SM of the NEE
+     instances, the probe and the NEE backward in both modes that config
      4's and config 7's launches take;
   3. forward kernel against its plain PyTorch version on the card, at
      800x600 / 15 bounces / 1 spp, 512x512 / 8 bounces / 4 spp and a
@@ -100,11 +101,18 @@ without printing a result:
      mapped to the scene's leaves), the residual mode against the replay
      mode too, on Cornell, config 8's triangle emitters, glass, no emitter,
      1000 spheres, 4000 spheres (the residual mode's cotangent tiles too
-     large for shared memory), a ragged 67x29 and 15 bounces; on config
+     large for shared memory), a ragged 67x29, 15 bounces, and spp of 40
+     at 15 bounces and 70 at 16 (several chunks of the replay mode, the
+     last one short); the
+     replay mode's ray cotangents bit-equal to the residual mode's in both
+     frames, and zero on pixels whose paths all end at bounce 0; on config
      8's scene, whose two emitter triangles are coplanar and overlap, the
      vertex fields are reported, not held (see `TIED_FIELDS`); the Function's
      forward bit-equal to the NEE kernel's, and the sorted frame's to the
-     raster one; the kernel refuses 17 bounces;
+     raster one; the kernel refuses 17 bounces; a scene of more than 768
+     emitters (`MANY_EMITTERS`), where the gradient takes the replay mode,
+     `loss_and_grad` against backend="torch" and the kernel in both frames
+     against the plain backward;
  17. the kernel route against the JAX package's gradients
      (tests/data/torch_port_nee_grad_golden.npz);
  18. the nearest-sphere and dual-fold kernels against their plain versions,
@@ -137,7 +145,8 @@ without printing a result:
      1 / 4 (both frames, the plain over row tiles: autograd of the plain
      trace, and of the word replay) and on a full-width strip of 1920x1088
      / 8 / 4 (the kernel launched on the whole image with the cotangent
-     zero outside the strip), and timed with them at 512x512; the two folds
+     zero outside the strip), the replay mode's ray cotangents bit-equal to
+     the residual mode's there, and timed with them at 512x512; the two folds
      at 1920x1088 x 1000 spheres and 320x180 x 20000, with their bounds and
      the registers, stack bytes and resident warps per SM of the instance
      each launch takes;
@@ -337,14 +346,24 @@ def ptxas_summary(mod) -> dict:
 
 def nee_ptxas_summary() -> dict:
     """What ptxas reported for the NEE kernel's instances, one thread per
-    lane and persistent, <glossy, dielectric, record>, and the probe."""
+    lane and persistent, <glossy, dielectric, record>, the probe, and the
+    NEE backward's instances in the residual mode <glossy, dielectric,
+    tiles in smem> and the replay mode <glossy, dielectric, tiles: 0 none,
+    1 the light tile, 2 all three in smem> with its two halves' functions
+    <glossy, dielectric> (their stack and spills)."""
     out = {}
-    for fn, rep in MK.ptxas_report(NE.library_path()).items():
-        m = re.search(r"(nee_(?:persistent_)?kernel)I((?:Lb[01]E)+)E", fn)
-        if m:
-            out[f"{m.group(1)}<{','.join(re.findall(r'Lb([01])E', m.group(2)))}>"] = rep
-        elif "probe_kernel" in fn:
-            out["probe_kernel"] = rep
+    for lib in (NE.library_path(), NV.library_path()):
+        for fn, rep in MK.ptxas_report(lib).items():
+            m = re.search(r"(nee_(?:persistent_)?kernel|nee_vjp_(?:resid|replay)_kernel)I((?:Lb[01]E)+)"
+                          r"(?:LN\w*?TilesE(\d)E)?E", fn)
+            half = re.search(r"((?:record|reverse)_chunk)ILb([01])ELb([01])E", fn)
+            if m:
+                args = re.findall(r"Lb([01])E", m.group(2)) + ([m.group(3)] if m.group(3) else [])
+                out[f"{m.group(1)}<{','.join(args)}>"] = rep
+            elif half:
+                out[f"{half.group(1)}<{half.group(2)},{half.group(3)}>"] = rep
+            elif "probe_kernel" in fn:
+                out["probe_kernel"] = rep
     return out
 
 
@@ -352,15 +371,17 @@ def nee_kernel_resources(dev) -> dict:
     """Registers, stack bytes and resident warps per SM of the instances
     that config 4's and config 7's launches take (1000 spheres, matte): the
     production instance in raster order, the persistent one presorted, the
-    recording one in the gradient's sorted frame (persistent), and the
-    probe."""
+    recording one in the gradient's sorted frame (persistent), the probe,
+    and the NEE backward in the replay and the residual mode."""
     tables = NE.nee_scene_tables(SC.big_scene(dev, 1000))
     keep = ("instance", "registers", "stack_bytes", "warps_per_sm", "threads", "blocks_per_sm")
     return {name: {k: r[k] for k in keep} for name, r in (
         ("nee_megakernel", NE.kernel_resources(tables)),
         ("nee_megakernel_presorted", NE.kernel_resources(tables, persistent=True)),
         ("nee_megakernel_record", NE.kernel_resources(tables, record=True, persistent=True)),
-        ("primary_probe", NE.kernel_resources(tables, probe=True)))}
+        ("primary_probe", NE.kernel_resources(tables, probe=True)),
+        ("nee_megakernel_vjp", NV.kernel_resources(tables, residual=False)),
+        ("nee_megakernel_vjp_residual", NV.kernel_resources(tables, residual=True)))}
 
 
 def phase(label: str, /, **fields) -> None:
@@ -1256,6 +1277,10 @@ def nee_grad_cases(dev):
         # 1943 pixels: a ragged last block.
         ("cornell8_ragged", SC.cornell_scene(dev), ref, 67, 29, 3, 1),
         ("glassy_b15", SC.glassy_scene(dev), origin, 48, 32, 15, 1),
+        # spp that is no multiple of the replay mode's chunk (34 samples at
+        # 15 bounces, 32 at 16): chunks of 34 + 6 and of 32 + 32 + 6.
+        ("glassy_b15_spp40", SC.glassy_scene(dev), origin, 16, 12, 15, 40),
+        ("cornell8_b16_spp70", SC.cornell_scene(dev), ref, 16, 12, 16, 70),
     ]
 
 
@@ -1294,7 +1319,7 @@ def nee_backward_vs_plain(dev) -> dict:
     the residual mode against the replay mode; the Function's forward
     against the NEE kernel and the sorted frame's against the raster one,
     bit for bit.  The kernel refuses 17 bounces."""
-    cases, max_abs, resid_max_abs = [], 0.0, 0.0
+    cases, max_abs, resid_max_abs, sky = [], 0.0, 0.0, 0
     for label, scene, cam, w, h, bounces, spp in nee_grad_cases(dev):
         li, kinds = NE.scene_light_indices(scene), _present_kinds(scene)
         glossy, diel = 1 in kinds, 2 in kinds
@@ -1335,9 +1360,15 @@ def nee_backward_vs_plain(dev) -> dict:
             words = NE.launch_nee(tables, rays, rng, bounces, spp, glossy, diel, record=True, **extra)[2]
             resid = NV.launch_nee_backward(tables, rays, rng, wts, bounces, spp, glossy, diel,
                                            words=words, **extra)
+            replay_rays_equal(f"{label} {frame}", got, resid)
+            sky += int((t0 >= INFINITE).sum())
+            if got[3][t0 >= INFINITE].any() or got[4][t0 >= INFINITE].any():
+                raise AssertionError(f"{label} {frame}: a pixel whose paths all end at bounce 0 has a "
+                                     f"nonzero ray cotangent")
             leaf = NV.table_grads_to_leaves(scene, li, *got[:3])
             leaf_r = NV.table_grads_to_leaves(scene, li, *resid[:3])
             rec[frame] = {
+                "rays_bit_equal_to_residual": True,
                 "vs_backward_reference": field_errors(f"{label} {frame}", leaf, want, tied=tied),
                 "d_origin": lane_robust_error(f"{label} {frame} d_origin", got[3], w_o),
                 "d_direction": lane_robust_error(f"{label} {frame} d_direction", got[4], w_d),
@@ -1370,7 +1401,73 @@ def nee_backward_vs_plain(dev) -> dict:
         raise AssertionError("the NEE backward kernel took 17 bounces")
     if NV.LAUNCHES != before:
         raise AssertionError("a refused NEE backward launch was counted")
-    return {"max_abs_err": max_abs, "residual_max_abs_err": resid_max_abs, "cases": cases}
+    if sky == 0:
+        raise AssertionError("no case has a pixel whose paths all end at bounce 0")
+    emitters = many_emitters_check(dev)
+    max_abs = max(max_abs, emitters.pop("max_abs_err"))
+    return {"max_abs_err": max_abs, "residual_max_abs_err": resid_max_abs, "sky_pixels": sky,
+            "cases": cases, "many_emitters": emitters}
+
+
+def replay_rays_equal(label, replay, resid) -> None:
+    """The replay mode's ray cotangents against the residual mode's on the
+    same inputs, bit for bit: both reverse the same words (the replay mode
+    records them with the recording forward's own loop) in the same sample
+    order."""
+    for k, name in ((3, "d_origin"), (4, "d_direction")):
+        if not torch.equal(replay[k], resid[k]):
+            off = (replay[k] != resid[k]).any(-1)
+            raise AssertionError(f"{label}: the replay mode's {name} differs from the residual mode's on "
+                                 f"{int(off.sum())} lanes, by up to {(replay[k] - resid[k]).abs().max().item()}")
+
+
+# The replay mode's second way in: more emitters than the residual mode's
+# light tile holds (768).  1000 spheres of config 4's layout, 90% of them
+# emitters, at 64x64 / 2 spp / 4 bounces.
+MANY_EMITTERS = (1000, 0.9, 64, 64, 2, 4)
+
+
+def many_emitters_check(dev) -> dict:
+    """Phase 16's scene of more than 768 emitters: `loss_and_grad(
+    backend="cuda", light_idx)` launches the replay mode (no recording
+    forward, no residual launch) and agrees with backend="torch"; the
+    kernel in raster and sorted order against the plain backward."""
+    n, share, w, h, spp, bounces = MANY_EMITTERS
+    scene, cam = SC.big_scene(dev, n, emitter_share=share), Camera.create(*CAM4, 90.0, dev)
+    li = NE.scene_light_indices(scene)
+    if len(li) <= NV.RESIDUAL_LIGHT_TILE_MAX_BYTES // 64:
+        raise AssertionError(f"the many-emitter scene has only {len(li)} emitters")
+    rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 31, dev)
+    params, target = G.scene_to_params(scene), torch.full((h, w, 3), 0.2, device=dev)
+    with plain_sphere_fold():
+        loss_t, g_t = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
+                                      estimator="physical", backend="torch")
+    before = (NV.LAUNCHES, NV.RESIDUAL_LAUNCHES, NE.RECORD_LAUNCHES)
+    loss_c, g_c = G.loss_and_grad(params, scene, cam, target, rng, num_bounces=bounces, spp=spp,
+                                  estimator="physical", backend="cuda", light_idx=li)
+    if (NV.LAUNCHES, NV.RESIDUAL_LAUNCHES, NE.RECORD_LAUNCHES) != (before[0] + 1, *before[1:]):
+        raise AssertionError("many emitters: loss_and_grad(cuda) did not launch the replay mode once")
+    rel = abs(loss_c.item() - loss_t.item()) / abs(loss_t.item())
+    if rel > LOSS_RTOL:
+        raise AssertionError(f"many emitters: loss {loss_c.item()} vs {loss_t.item()}")
+    label = f"{len(li)} emitters {w}x{h} b{bounces} spp{spp}"
+    rec = {"case": label, "emitters": len(li), "loss_rel_err": rel,
+           "loss_and_grad_replay": field_errors(f"{label} loss_and_grad", g_c._asdict(), g_t._asdict(),
+                                                min_nonzero=4)}
+    wts = torch.as_tensor(np.random.default_rng(31).normal(size=(h, w, 3)).astype(np.float32), device=dev)
+    tables = NE.nee_scene_tables(scene, li)
+    with plain_sphere_fold():
+        want, w_o, w_d = NV.backward_reference(scene, rays, rng, wts, bounces, spp)
+    t0, prim0 = NE.launch_probe(tables, rays)
+    max_abs = 0.0
+    for frame, extra in (("raster", {}), ("sorted", {"order": NE._presort_order(t0), "primary": (t0, prim0)})):
+        got = NV.launch_nee_backward(tables, rays, rng, wts, bounces, spp, False, False, **extra)
+        leaf = NV.table_grads_to_leaves(scene, li, *got[:3])
+        rec[frame] = {"vs_backward_reference": field_errors(f"{label} {frame}", leaf, want, min_nonzero=4),
+                      "d_origin": lane_robust_error(f"{label} {frame} d_origin", got[3], w_o),
+                      "d_direction": lane_robust_error(f"{label} {frame} d_direction", got[4], w_d)}
+        max_abs = max(max_abs, *((leaf[f] - x).abs().max().item() for f, x in want.items() if x.numel()))
+    return {**rec, "max_abs_err": max_abs}
 
 
 def nee_backward_vs_golden(dev) -> list:
@@ -1880,6 +1977,8 @@ def physical_training_times(dev, smi) -> tuple:
         got = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False, False, **extra)
         rec[f"held_{frame}"] = held(f"backward {w}x{h} {frame}", got, want)
         got_r = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False, False, words=words[frame], **extra)
+        replay_rays_equal(f"backward {w}x{h} {frame}", got, got_r)
+        rec[f"held_{frame}"]["rays_bit_equal_to_residual"] = True
         rec["residual"][f"held_{frame}"] = held(f"residual backward {w}x{h} {frame}", got_r, want)
         rec["residual"][f"held_{frame}_vs_word_replay"] = held(
             f"residual backward {w}x{h} {frame} vs the plain word replay", got_r, want_words)
@@ -1910,18 +2009,22 @@ def physical_training_times(dev, smi) -> tuple:
     rec = {}
     for frame, extra in (("raster", {}), ("sorted", {"order": NE._presort_order(t0), "primary": (t0, prim0)})):
         words = NE.launch_nee(tables, rays, rng, 4, spp, False, False, record=True, **extra)[2]
+        outs = {}
         for mode, kw, suffix, settings in (("", {}, "", {}), ("residual_", {"words": words}, "", {}),
                                            ("residual_", {"words": words}, "_tiles_in_device_memory",
                                             TILE_PLACEMENTS["device"])):
             with nv_settings(**settings):
-                got = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False, False, **extra, **kw)
+                got = outs[mode + suffix] = NV.launch_nee_backward(tables, rays, rng, wts, 4, spp, False,
+                                                                   False, **extra, **kw)
             outside = torch.cat([got[3][:strip.start], got[3][strip.stop:], got[4][:strip.start],
                                  got[4][strip.stop:]])
             if outside.abs().max() != 0:
                 raise AssertionError(f"strip {mode}{frame}{suffix}: a ray cotangent outside the strip is not 0")
             rec[f"{mode}held_{frame}{suffix}"] = held(f"{mode}backward {w}x{h} strip {frame}{suffix}", got,
                                                       want, strip)
-        del words
+        replay_rays_equal(f"backward {w}x{h} strip {frame}", outs[""], outs["residual_"])
+        rec[f"held_{frame}"]["rays_bit_equal_to_residual"] = True
+        del words, outs
     out[f"backward_vs_plain_{w}x{h}_spp{spp}_b4_rows{strip.start}_{strip.stop}"] = strip_rec = rec
 
     # The two folds at 1920x1088 x 1000 spheres and 320x180 x 20000 (phase
@@ -2690,6 +2793,7 @@ def main() -> int:
         **grad_entries["nee_megakernel_vjp"],
         "max_abs_err": max(nee_bwd["max_abs_err"], grad_entries["nee_megakernel_vjp"]["max_abs_err"]),
         "library_ms": None,
+        **{k: nee_res["nee_megakernel_vjp"][k] for k in RESOURCE_KEYS},
     }, {
         "name": "nee_megakernel_vjp_residual",
         "route": "cuda",
@@ -2700,6 +2804,7 @@ def main() -> int:
         "max_abs_err": max(nee_bwd["residual_max_abs_err"],
                            grad_entries["nee_megakernel_vjp_residual"]["max_abs_err"]),
         "library_ms": None,
+        **{k: nee_res["nee_megakernel_vjp_residual"][k] for k in RESOURCE_KEYS},
     }, {
         "name": "dual_fold",
         "route": "cuda",

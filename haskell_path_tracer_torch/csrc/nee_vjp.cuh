@@ -17,11 +17,14 @@
 // took is reversed, so no guard against an infinite Jacobian of a branch
 // not taken is needed.
 //
-// The replay runs the forward's own device functions (nee.cuh:live_bounce),
-// folds included, so its decisions are the forward kernel's bit for bit; or,
-// from the recording forward's residual words, runs no fold at all
-// (replay_bounce), the winner's distance recomputed by the fold's own
-// expression (winner_t).
+// The reverse replays each sample from the recording forward's residual
+// words and runs no fold (replay_bounce), the winner's distance recomputed
+// by the fold's own expression (winner_t).  The words come from the
+// gradient's recording forward (the residual mode) or, in the replay mode,
+// from the forward's own flat loop run again one chunk of samples at a time
+// just before the chunk's reverse (pixel_backward_chunked).  The folded
+// replay (pixel_backward without RESID, nee.cuh:live_bounce) is the host
+// harnesses' oracle of the fold-free one; no kernel runs it.
 //
 // Cotangents of the tables (ops/nee.py:nee_scene_tables): the winner's fold
 // row (a sphere's [c, r^2], a plane's [p, n], a triangle's [v0, e1, e2]), its
@@ -35,6 +38,14 @@
 #pragma once
 
 #include "nee.cuh"
+
+// A function that nvcc compiles as a call of its own, not inlined into its
+// caller, so that it allocates its registers alone; inline on the host.
+#if defined(__CUDACC__)
+#define HPT_CALL __host__ __device__ __noinline__
+#else
+#define HPT_CALL inline
+#endif
 
 namespace hpt {
 namespace nee {
@@ -559,9 +570,9 @@ HPT_HD void replay_bounce(const Scene& S, float* o, float* d, int prim, bool occ
 // bounce's row cotangents to acc(rg).
 //
 // Two replays.  Without RESID, from the primary hit (t0, prim0) through the
-// forward's own live_bounce, folds included (the TPU kernel's fallback
-// above its residual cap).  With RESID, from the recording forward's
-// residual words rec[(s * num_bounces + b) * stride] (nee.cuh:
+// forward's own live_bounce, folds included: the nested sample x bounce
+// loop, kept as the host harnesses' oracle.  With RESID, from the recording
+// forward's residual words rec[(s * num_bounces + b) * stride] (nee.cuh:
 // residual_word): the replay runs replay_bounce, no fold at all, the
 // primary one included (t0 and prim0 are not read), and a path ends at the
 // first word without the live bit.  Both take the same decisions, the
@@ -616,6 +627,71 @@ HPT_HD void pixel_backward(const Scene& S, const float* po, const float* pd,
       for (int i = 0; i < 3; ++i) { c_o[i] = go[i]; c_d[i] = gd[i]; c_t[i] = gth[i]; }
     }
     for (int i = 0; i < 3; ++i) { g_o[i] += c_o[i]; g_d[i] += c_d[i]; }
+  }
+}
+
+// The two halves of a replay-mode chunk (pixel_backward_chunked), each a
+// function of its own under nvcc (HPT_CALL, not inlined), so that the
+// flat loop's fold allocates its registers apart from the pixel's other
+// state: 1-3% faster than inlined at suite config 7 on an H100 (PERF.md).
+
+// The fold half: the forward's own flat loop (lane_step with RECORD) over
+// the lane's next `n` samples, from the lane as restart left it, writing
+// their residual words at rec[(s * num_bounces + b) * stride] for the
+// chunk's samples s = 0 .. n - 1.
+template <bool HAS_GLOSSY, bool HAS_DIEL>
+HPT_CALL void record_chunk(Scene S, Lane& lane, int n, int num_bounces, int* rec, int stride) {
+  Lane L = lane;
+  // L.s counts the chunk's samples, so lane_next ends the loop at its last
+  // one and its words land at the chunk's rows of rec.
+  L.s = 0;
+  while (lane_step<HAS_GLOSSY, HAS_DIEL, true>(S, L, n, num_bounces, rec, stride)) {
+  }
+  lane = L;
+}
+
+// The reverse half: the fold-free pixel_backward (RESID) over the chunk's
+// words, from the rng the chunk started at.
+template <bool HAS_GLOSSY, bool HAS_DIEL, class Acc>
+HPT_CALL void reverse_chunk(Scene S, const float* po, const float* pd, const int* rec,
+                            int stride, Rng start, const float* g_rad, int n, int num_bounces,
+                            Residual* st, float* g_o, float* g_d, Acc acc) {
+  pixel_backward<HAS_GLOSSY, HAS_DIEL, true>(S, po, pd, 0.0f, 0, rec, stride, start, g_rad, n,
+                                             num_bounces, st, g_o, g_d, acc);
+}
+
+// The replay mode's backward of one pixel, `chunk` samples at a time, with
+// no word from the forward: for each chunk, the forward's own flat loop
+// (record_chunk, from the chunk's rng) writes the chunk's residual words
+// into rec, which must hold chunk * num_bounces words `stride` apart; then
+// the fold-free reverse (reverse_chunk) sweeps the chunk from the same rng;
+// the next chunk starts from the rng the flat loop left.  The words are the
+// recording forward's bit for bit, so the rays, throughputs, winners and
+// draws the reverse stores are the residual mode's, and the ray cotangents
+// are added in the same sample order: g_o and g_d come out as the residual
+// mode's, bit for bit.  A pixel whose primary ray misses (t0 = kInfinite)
+// adds nothing.  sync() runs after each half of every chunk, whether the
+// pixel has anything to trace or not, so that a kernel can make the lanes
+// of a warp, which leave the flat loop at different steps, meet before the
+// reverse and run it together.
+template <bool HAS_GLOSSY, bool HAS_DIEL, class Acc, class Sync>
+HPT_HD void pixel_backward_chunked(const Scene& S, const float* po, const float* pd,
+                                   float t0, int prim0, const Rng& rng, const float* g_rad,
+                                   int spp, int num_bounces, int chunk, int* rec, int stride,
+                                   Residual* st, float* g_o, float* g_d, const Acc& acc,
+                                   const Sync& sync) {
+  Lane L;
+  const bool live = lane_start<false>(L, po, pd, t0, prim0, rng, spp, num_bounces, nullptr, 0);
+  for (int s0 = 0; s0 < spp; s0 += chunk) {
+    const int n = spp - s0 < chunk ? spp - s0 : chunk;
+    const Rng start = L.rng;
+    if (live) record_chunk<HAS_GLOSSY, HAS_DIEL>(S, L, n, num_bounces, rec, stride);
+    sync();
+    if (live)
+      reverse_chunk<HAS_GLOSSY, HAS_DIEL>(S, po, pd, rec, stride, start, g_rad, n, num_bounces, st,
+                                          g_o, g_d, acc);
+    sync();
+    restart(L);
   }
 }
 

@@ -57,12 +57,13 @@ def cornell_scene(device) -> Scene:
     return Scene(spheres=spheres, planes=planes)
 
 
-def big_scene(device, n: int = 1000) -> Scene:
-    """n matte spheres, about 1% of them emitters (illuminance 50)."""
+def big_scene(device, n: int = 1000, emitter_share: float = 0.01) -> Scene:
+    """n matte spheres, about `emitter_share` of them emitters (illuminance
+    50)."""
     rng = np.random.default_rng(7)
     pos = rng.uniform([-30, -2.5, -60], [30, 10, -8], (n, 3))
     radius = rng.uniform(0.2, 0.9, n)
-    illum = np.where(rng.random(n) < 0.01, 50.0, 0.0)
+    illum = np.where(rng.random(n) < emitter_share, 50.0, 0.0)
     # One draw of 3n values is the stream of n draws of 3.
     color = rng.uniform(0.2, 0.9, (n, 3))
     mats = make_materials(

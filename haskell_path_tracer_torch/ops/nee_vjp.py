@@ -7,20 +7,24 @@ kernel `_nee_bwd_kernel` (launched by `_nee_bwd_call`), in both of that
 kernel's modes.  `TracePhysicalNeeDiff`'s forward is the NEE megakernel of
 ``ops/nee.py`` (`launch_nee`, bit-equal to the render path's); its backward
 is `launch_nee_backward`, the hand-written CUDA kernel in
-``csrc/nee_megakernel_vjp.cu``, which replays each sample's bounces and
-sweeps them in reverse with every decision detached: the winner, the shadow
-decision, the hit and dead masks, the BRDF branch and the six uniforms of
-each bounce.
+``csrc/nee_megakernel_vjp.cu``, which replays each sample's bounces from
+one residual word per (sample, bounce) and sweeps them in reverse with every
+decision detached: the winner, the shadow decision, the hit and dead masks,
+the BRDF branch and the six uniforms of each bounce.
 
 Two modes, as in the TPU package.  Residual mode (its `grad_residuals` /
-`fold_residuals`): when the words fit in RESIDUAL_MAX_BYTES
-(`records_residuals`) the forward is the NEE kernel's recording instance,
-which also writes one int32 word per (sample, bounce) with the bounce's
-winner and its occlusion, hit and live bits (`ops/nee.py`: PRIM_SHIFT,
-OCC_BIT, HIT_BIT, LIVE_BIT), and the backward replays from those words
-without a single fold.  Replay mode, above the budget: the backward replays the folds as the forward ran them.
-Both give the forward's decisions bit for bit, so they compute the same
-gradient up to the order of the atomic sums.
+`fold_residuals`): when the words fit in RESIDUAL_MAX_BYTES and the light
+tile in RESIDUAL_LIGHT_TILE_MAX_BYTES (`records_residuals`) the forward is
+the NEE kernel's recording instance, which also writes one int32 word per
+(sample, bounce) with the bounce's winner and its occlusion, hit and live
+bits (`ops/nee.py`: PRIM_SHIFT, OCC_BIT, HIT_BIT, LIVE_BIT), and the
+backward replays from those words without a single fold.  Replay mode,
+above either limit: the forward records nothing, and the backward runs the
+forward's own flat loop again one chunk of samples at a time, recording the
+chunk's words into a per-thread buffer, then reverses the chunk from them
+as the residual mode does.  Both take the forward's decisions bit for bit,
+so they give the same ray cotangents bit for bit and the same table
+cotangents up to the order of the atomic sums.
 
 Gradients: the NEE tables (`NeeTables.fold`, `.payload`, `.lights`) and
 the primary rays.  Autograd of `ops/nee.py:nee_scene_tables` maps the
@@ -58,10 +62,11 @@ field, a normalised error max|a - b| / max|b| below 5e-3
 atomics in an order that changes from run to run, and grazing lanes amplify
 a last-bit difference of the forward in the gradient.
 
-The replay mode is bound by fp32 work: its replay repeats the forward's
-dual fold at every live bounce.  The residual mode's work is the adjoint
-alone, under a thousand operations per bounce, and its atomic sums (see
-the note at the top of the CUDA source).
+The replay mode is bound by fp32 work: each chunk's flat loop repeats the
+forward's dual fold at every live bounce, the recording forward's work,
+and its reverse is the residual mode's.  The residual mode's work is the
+adjoint alone, under a thousand operations per bounce, and its atomic sums
+(see the note at the top of the CUDA source).
 """
 
 from __future__ import annotations
@@ -81,7 +86,7 @@ from .intersect import INFINITE, PLANE_DENOM_EPS, Hit
 
 SOURCE = os.path.join(MK.CSRC, "nee_megakernel_vjp.cu")
 HEADERS = tuple(os.path.join(MK.CSRC, h) for h in ("nee_vjp.cuh", "nee.cuh", "bounce.cuh"))
-# The replay's residual array (kMaxBounces in the CUDA source).
+# The reverse's residual array (kMaxBounces in the CUDA source).
 MAX_BOUNCES = 16
 # What the C entry point returns for more bounces than MAX_BOUNCES or for
 # a scene with boxes.
@@ -98,18 +103,22 @@ _CUDA_ERROR_INVALID_VALUE = 1
 RESIDUAL_MAX_BYTES = 1 << 31
 # The residual mode keeps the light cotangents (64 B per emitter row) in a
 # shared-memory tile, so it is taken only when that tile fits in the 48 KB
-# any block may take without opting in for more: up to 768 emitters.
+# any block may take without opting in for more: up to 768 emitters.  The
+# replay mode takes any number: above 768 its light rows take global
+# atomics.
 RESIDUAL_LIGHT_TILE_MAX_BYTES = 48 * 1024
-# The residual mode sums the fold and payload cotangents (64 B per sphere)
-# in shared-memory tiles too, each block adding its tiles to the output
-# once, when the three tiles take at most RESIDUAL_TILE_MAX_BYTES (and fit
-# in the card's opt-in shared memory per block, which the launch checks);
-# larger tables take one global atomic per entry and bounce.  113 KB: the
-# most that keeps two blocks resident per SM of an H100 (228 KB of shared
-# memory per SM, 1 KB of it reserved per block).  On an H100 at suite
-# config 7's shapes the tiles won 2.4-2.6x with 3 blocks per SM (1000
-# spheres) and 1.65-1.8x with 2 (1600), and lost 9-11% with 1 (3400;
-# PERF.md, phase 20).  Tests set it to 0 to take the global atomics.
+# Both modes sum the fold and payload cotangents (64 B per sphere) in
+# shared-memory tiles too, each block adding its tiles to the output once,
+# when the three tiles take at most RESIDUAL_TILE_MAX_BYTES (and fit in the
+# card's opt-in shared memory per block, which the launch checks; the
+# replay mode also keeps them out where they would cost its kernel a
+# resident block per SM); larger tables take one global atomic per entry
+# and bounce.  113 KB: the most that keeps two blocks resident per SM of an
+# H100 (228 KB of shared memory per SM, 1 KB of it reserved per block).
+# On an H100 at suite config 7's shapes the residual mode's tiles won
+# 2.4-2.6x with 3 blocks per SM (1000 spheres) and 1.65-1.8x with 2 (1600),
+# and lost 9-11% with 1 (3400; PERF.md, phase 20).  Tests set it to 0 to
+# take the global atomics.
 RESIDUAL_TILE_MAX_BYTES = 113 * 1024
 
 # Launches of the backward kernel by `launch_nee_backward`: LAUNCHES counts
@@ -140,12 +149,29 @@ def _library():
             vp, vp, vp, i, i, i, i, i,  # tables, counts, lights
             vp, vp, vp, vp, vp, vp, vp,  # origin, direction, rng, t0, prim0, order, g_rad
             vp, i,  # words, tiles_in_smem
-            vp, vp, vp, vp, vp,  # d_fold, d_payload, d_lights, d_origin, d_direction
+            vp, vp, vp, vp, vp, vp,  # d_fold, d_payload, d_lights, d_origin, d_direction, next_lane
             i, i, i, i, i, vp,
         ]
         lib.hpt_nee_vjp_launch.restype = i
+        lib.hpt_nee_vjp_resources.argtypes = [i, i, i, i, i, i, i, i, i, vp, vp]
+        lib.hpt_nee_vjp_resources.restype = i
         _lib = lib
     return _lib
+
+
+def kernel_resources(tables: NE.NeeTables, residual: bool, has_glossy=False,
+                     has_diel=False) -> dict:
+    """What the card gives the backward's instance that a launch on these
+    tables takes, in the residual or the replay mode
+    (`ops/megakernel.py:resources`).  Raises when the card refuses the
+    query."""
+    def query(*args):
+        err = _library().hpt_nee_vjp_resources(*args)
+        if err != 0:
+            raise RuntimeError(f"NEE backward resource query failed: cudaError {err}")
+
+    return MK.resources(query, *tables.counts, tables.num_lights, int(has_glossy), int(has_diel),
+                        int(residual), int(residual_tiles_in_smem(tables)))
 
 
 # Scene leaves -------------------------------------------------------------
@@ -390,8 +416,9 @@ def launch_nee_backward(tables: NE.NeeTables, rays: Rays, rng, g_rad, num_bounce
     [H, W, 3] for the trace `ops/nee.py:launch_nee` runs on the same
     operands (`order` and `primary` as there).  With `words`, the residual
     words that `launch_nee(..., record=True)` wrote with the same `order`,
-    the residual mode, which runs no fold and does not read `primary`
-    (its cotangent tiles by `residual_tiles_in_smem`).
+    the residual mode, which runs no fold and does not read `primary`;
+    without, the replay mode, which records each chunk's words itself.
+    Either mode places its cotangent tiles by `residual_tiles_in_smem`.
     Checks every operand, launches on the current stream without
     synchronising and counts the launch in LAUNCHES, and in
     RESIDUAL_LAUNCHES with `words`."""
@@ -430,6 +457,8 @@ def launch_nee_backward(tables: NE.NeeTables, rays: Rays, rng, g_rad, num_bounce
     d_lights = torch.zeros_like(tables.lights)
     d_origin = torch.empty((H, W, 3), dtype=torch.float32, device=device)
     d_direction = torch.empty((H, W, 3), dtype=torch.float32, device=device)
+    # The replay mode's warps take their lanes from this counter.
+    next_lane = torch.zeros(1, dtype=torch.int32, device=device) if words is None else None
     err = _library().hpt_nee_vjp_launch(
         tables.fold.data_ptr(), tables.payload.data_ptr(), tables.lights.data_ptr(),
         *tables.counts, tables.num_lights,
@@ -437,7 +466,7 @@ def launch_nee_backward(tables: NE.NeeTables, rays: Rays, rng, g_rad, num_bounce
         NE._ptr(t0), NE._ptr(prim0), NE._ptr(order), g_rad.data_ptr(),
         NE._ptr(words), int(residual_tiles_in_smem(tables)),
         d_fold.data_ptr(), d_payload.data_ptr(), d_lights.data_ptr(),
-        d_origin.data_ptr(), d_direction.data_ptr(),
+        d_origin.data_ptr(), d_direction.data_ptr(), NE._ptr(next_lane),
         H * W, spp, num_bounces, int(has_glossy), int(has_diel),
         torch.cuda.current_stream(device).cuda_stream,
     )

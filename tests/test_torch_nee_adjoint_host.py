@@ -16,7 +16,18 @@ torch.autograd of the plain versions:
     on small images at 3 and 15 bounces, in raster order: its table
     cotangents mapped back through `nee_scene_tables`
     (`table_grads_to_leaves`) against `backward_reference`, autograd of the
-    plain trace, per `SceneParams` field.
+    plain trace, per `SceneParams` field;
+  * `pixel_backward_chunked`, the replay-mode kernel's per-pixel work (the
+    forward's flat loop records a chunk of samples' words, the fold-free
+    reverse sweeps them, chunk after chunk), at chunks of one sample, of
+    all samples and of a size that does not divide spp, at 3 and 15
+    bounces, in raster order and in the sorted frame (lane i on pixel
+    order[i], with the probe's primary hits): against `backward_reference`
+    as above, and against the residual mode's backward over the host
+    recording forward's words, whose ray cotangents it must give bit for
+    bit (and, in raster order, its table cotangents too: the same sums in
+    the same order; in the sorted frame within 1e-4); a pixel whose primary
+    ray misses, so that every path dies at bounce 0, gets exactly zero.
 
 Tolerance: a scale-normalised error max|a - b| / (max|b| + 1e-6) below
 1e-4 per state for the state cotangents and the pixels' ray cotangents;
@@ -101,6 +112,12 @@ def lib(tmp_path_factory):
     lib.hpt_nee_backward_host.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i,
                                           vp, vp, vp, vp, i, i, vp, vp, vp, vp, vp]
     lib.hpt_nee_backward_host.restype = i
+    lib.hpt_nee_backward_chunked_host.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i,
+                                                  vp, vp, vp, vp, vp, vp, vp, i, i, i,
+                                                  vp, vp, vp, vp, vp]
+    lib.hpt_nee_backward_chunked_host.restype = i
+    lib.hpt_nee_backward_residual_host.argtypes = lib.hpt_nee_backward_host.argtypes
+    lib.hpt_nee_backward_residual_host.restype = i
     return lib
 
 
@@ -248,20 +265,37 @@ def test_dielectric_branches_are_all_taken():
     assert tir.sum() >= 3 and refl.sum() >= 3 and refr.sum() >= 10
 
 
-def _pixel_backward(lib, name, H, W, bounces, spp):
+def _inputs(name, H, W):
     scene, tables, has_glossy, has_diel = _tables(name)
     pose = SCENES[name][1]
     cam = world.initial_camera("cpu") if pose is None else Camera.create(*pose, 90.0, "cpu")
     rays = primary_rays(cam, W, H)
     rng = gen_seeds((H, W), 9, "cpu")
     g_rad = torch.tensor(np.random.default_rng(4).normal(size=(H, W, 3)), dtype=torch.float32)
-    want, w_o, w_d = NV.backward_reference(scene, rays, rng, g_rad, bounces, spp)
+    return scene, tables, has_glossy, has_diel, rays, rng, g_rad
+
+
+def _host_backward(fn, tables, has_glossy, has_diel, rays, rng, g_rad, *args):
+    """Runs a host backward entry point; returns its (d_fold, d_payload,
+    d_lights, d_origin, d_direction)."""
+    H, W = rng.shape[:2]
     got = [torch.zeros_like(tables.fold), torch.zeros_like(tables.payload),
            torch.zeros_like(tables.lights), torch.zeros(H, W, 3), torch.zeros(H, W, 3)]
-    assert lib.hpt_nee_backward_host(
-        _p(tables.fold), _p(tables.payload), _p(tables.lights), *tables.counts,
-        tables.num_lights, int(has_glossy), int(has_diel), H * W, _p(rays.origin),
-        _p(rays.direction), _p(rng), _p(g_rad), spp, bounces, *(_p(x) for x in got)) == 0
+    assert fn(_p(tables.fold), _p(tables.payload), _p(tables.lights), *tables.counts,
+              tables.num_lights, int(has_glossy), int(has_diel), H * W, _p(rays.origin),
+              _p(rays.direction), _p(rng), _p(g_rad), *args, *(_p(x) for x in got)) == 0
+    return got
+
+
+def _pixel_backward(lib, name, H, W, bounces, spp):
+    scene, tables, has_glossy, has_diel, rays, rng, g_rad = _inputs(name, H, W)
+    want, w_o, w_d = NV.backward_reference(scene, rays, rng, g_rad, bounces, spp)
+    got = _host_backward(lib.hpt_nee_backward_host, tables, has_glossy, has_diel, rays, rng, g_rad,
+                         spp, bounces)
+    return _leaf_errors(scene, tables, got, want, w_o, w_d)
+
+
+def _leaf_errors(scene, tables, got, want, w_o, w_d):
     leaf = NV.table_grads_to_leaves(scene, None, *got[:3])
     # Without emitters no term of the radiance depends on the geometry.
     nonzero = [f for f, w in want.items() if w.numel() and w.abs().max() > 0]
@@ -285,3 +319,52 @@ def test_pixel_backward_at_fifteen_bounces(lib, name):
     limit of 16, and the long reverse sweep of the glass's specular chains."""
     errs = _pixel_backward(lib, name, 8, 12, 15, 1)
     assert max(errs.values()) < LEAF_TOL and max(errs["d_origin"], errs["d_direction"]) < TOL, errs
+
+
+# (scene, bounces, spp, chunk, sorted frame): chunks of one sample, of all
+# samples and of a size that does not divide spp; 3 and 15 bounces; the
+# raster and the sorted frame.  glassy and big300 have sky pixels, whose
+# paths all die at bounce 0.
+CHUNKED = [
+    ("cornell", 3, 5, 1, False),
+    ("cornell", 3, 5, 5, True),
+    ("glassy", 3, 5, 2, False),
+    ("big300", 3, 3, 2, True),
+    ("glassy", 15, 2, 1, True),
+    ("tri_emitters", 15, 3, 2, False),
+]
+
+
+@pytest.mark.parametrize("name,bounces,spp,chunk,sort", CHUNKED)
+def test_chunked_replay_matches_plain_and_residual_backward(lib, name, bounces, spp, chunk, sort):
+    """The replay mode's chunked per-pixel backward against the plain
+    backward (per field 1e-3, rays 1e-4) and against the residual mode's
+    over the host forward's words: ray cotangents bit for bit, table
+    cotangents bit for bit in raster order and within 1e-4 in the sorted
+    frame (the same sums in another pixel order, with cancellation)."""
+    H, W = (12, 20) if bounces < 10 else (8, 12)
+    scene, tables, has_glossy, has_diel, rays, rng, g_rad = _inputs(name, H, W)
+    order = t0 = prim0 = None
+    if sort:
+        t0, prim0 = nearest_t_prim(rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3), scene, 0.0)
+        t0, prim0 = t0.contiguous(), prim0.to(torch.int32).contiguous()
+        order = NE._presort_order(t0.reshape(H, W)).contiguous()
+    ptr = lambda t: None if t is None else _p(t)  # noqa: E731
+    got = _host_backward(lib.hpt_nee_backward_chunked_host, tables, has_glossy, has_diel, rays, rng,
+                         g_rad, ptr(order), ptr(t0), ptr(prim0), spp, bounces, chunk)
+    resid = _host_backward(lib.hpt_nee_backward_residual_host, tables, has_glossy, has_diel, rays, rng,
+                           g_rad, spp, bounces)
+    assert torch.equal(got[3], resid[3]) and torch.equal(got[4], resid[4])
+    for a, b in zip(got[:3], resid[:3]):
+        if sort:
+            assert _norm_err(a, b) < TOL
+        else:
+            assert torch.equal(a, b)
+    want, w_o, w_d = NV.backward_reference(scene, rays, rng, g_rad, bounces, spp)
+    errs = _leaf_errors(scene, tables, got, want, w_o, w_d)
+    assert max(errs.values()) < LEAF_TOL and max(errs["d_origin"], errs["d_direction"]) < TOL, errs
+    if name in ("glassy", "big300"):
+        t, _ = nearest_t_prim(rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3), scene, 0.0)
+        sky = (t >= INFINITE).reshape(H, W)
+        assert sky.any()
+        assert not got[3][sky].any() and not got[4][sky].any()

@@ -22,8 +22,9 @@
       sums).
   (c) The mode gate: `RESIDUAL_MAX_BYTES` and the light tile's size pick
       each mode, the tile gate reads its constant, the CPU routes launch
-      nothing and the launchers refuse CPU tensors; the word replay reads
-      nothing past a path's end.
+      nothing and the launchers refuse CPU tensors (above 768 emitters too,
+      where the gradient agrees with the residual mode's); the word replay
+      reads nothing past a path's end.
 """
 
 import numpy as np
@@ -274,3 +275,49 @@ def test_cpu_routes_never_launch(monkeypatch, budget):
     with pytest.raises(ValueError, match="CUDA"):
         NV.launch_nee_backward(tables, rays, rng, wts, 2, 1, words=words)
     assert (dict(NE.LAUNCHES), NE.RECORD_LAUNCHES, NV.LAUNCHES, NV.RESIDUAL_LAUNCHES) == counts
+
+
+def test_many_emitters_take_the_replay_mode_and_agree_with_the_residual_mode(monkeypatch):
+    """(c): a scene of more than 768 emitters takes the replay mode (the
+    residual mode's light tile does not hold it); on the CPU the
+    differentiable trace still runs the plain version and launches nothing,
+    and its gradient agrees with the residual mode's plain backward from
+    the words, which the gate takes on the same scene once the light-tile
+    limit is raised above it."""
+    from haskell_path_tracer_torch.models import scenes as S
+    from haskell_path_tracer_torch.models.camera import primary_rays
+    from haskell_path_tracer_torch.models.objects import Camera
+    from haskell_path_tracer_torch.ops.rng import gen_seeds
+
+    h, w, spp, bounces = 8, 8, 2, 3
+    scene = S.big_scene("cpu", 900, emitter_share=0.95)
+    lights = len(NE.scene_light_indices(scene))
+    assert lights > NV.RESIDUAL_LIGHT_TILE_MAX_BYTES // 64
+    assert not NV.records_residuals(h * w, spp, bounces, lights)
+    rays = primary_rays(Camera.create([0.0, 2.0, 0.0], [0.2, 0.0, 0.0], 90.0, "cpu"), w, h)
+    rng = gen_seeds((h, w), 3, "cpu")
+    wts = torch.as_tensor(np.random.default_rng(3).normal(size=(h, w, 3)).astype(np.float32))
+
+    counts = (dict(NE.LAUNCHES), NE.RECORD_LAUNCHES, NV.LAUNCHES, NV.RESIDUAL_LAUNCHES)
+    leaves = NV._leaves(scene)
+    o, d = rays.origin.clone().requires_grad_(), rays.direction.clone().requires_grad_()
+    rad, _ = NV.trace_physical_nee_diff(NV._leaf_scene(leaves, scene), Rays(origin=o, direction=d),
+                                        rng, bounces, spp)
+    grads = torch.autograd.grad(rad, [*leaves, o, d], wts, allow_unused=True)
+    assert (dict(NE.LAUNCHES), NE.RECORD_LAUNCHES, NV.LAUNCHES, NV.RESIDUAL_LAUNCHES) == counts
+
+    kinds = _present_kinds(scene)
+    _, _, words = NE.trace_physical_nee_reference(scene, rays, rng, bounces, spp, kinds, residuals=True)
+    want, want_o, want_d = NV.backward_reference(scene, rays, rng, wts, bounces, spp, kinds, words=words)
+    nonzero = 0
+    for g, (f, x) in zip(grads, want.items()):
+        if x.numel():
+            g = torch.zeros_like(x) if g is None else g
+            err = ((g - x).abs().max() / x.abs().max().clamp(min=1e-6)).item()
+            assert err <= GRAD_TOL, (f, err)
+            nonzero += int(x.abs().max() > 0)
+    assert nonzero >= 8
+    for g, x in ((grads[-2], want_o), (grads[-1], want_d)):
+        assert ((g - x).abs().max() / x.abs().max().clamp(min=1e-6)).item() <= GRAD_TOL
+    monkeypatch.setattr(NV, "RESIDUAL_LIGHT_TILE_MAX_BYTES", 64 * lights)
+    assert NV.records_residuals(h * w, spp, bounces, lights)
