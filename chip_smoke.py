@@ -154,8 +154,12 @@ without printing a result:
      on the card: config 3's glass scene at 512x512 / 8 b / 4 spp, the
      reference scene at 800x600 / 15 / 1, a ragged 333x97, stack depths 1,
      2, 4 and 14 at 15 bounces, the mixed-kinds scene, 1000 and 4000
-     spheres (tables in shared memory above 48 KB, and in device memory);
-     on the reference scene against the forward kernel (rng equal, radiance
+     spheres (tables in shared memory above 48 KB, and in device memory):
+     every rng word equal and every radiance value bit-equal, or, on a
+     scene without glass (the reference and the mixed-kinds scene, whose
+     glossy sample differs from PyTorch's in the last bits), bit-equal to
+     the forward kernel's, which shares the kernel's per-bounce code; on the
+     reference scene against the forward kernel (rng equal, radiance
      within 1e-6); the forward and backward kernels against their plain
      versions on 1000, 2000 and 4000 spheres;
  22. the splitting kernel against the JAX package's Pallas kernel
@@ -171,7 +175,10 @@ without printing a result:
  24. splitting times: the kernel at suite config 3 (512x512 / 64 spp / 8 b,
      queue_factor 2; rays/s as suite.py counts them, W H spp b, and the
      processed segments), at 800x600 / 15 / 1 on the glass and reference
-     scenes with `Renderer.step` and the plain version, with bounds; the
+     scenes with `Renderer.step` and the plain version, with bounds, the
+     registers, stack bytes and resident warps per SM of the instance each
+     launch takes, and the warp efficiency of the nested and of the flat
+     step loop (from the plain version's steps per sample and lane); the
      forward kernel at 800x600 / 15 / 1 on 1000 spheres;
  25. the NEE gradient's recording forward: the NEE kernel's recording
      instance bit-equal to its production instance in radiance and rng,
@@ -2247,15 +2254,33 @@ def strict_check(label, got, want) -> dict:
             "bit_equal": bool(torch.equal(got[0], want[0]))}
 
 
+def split_warp_efficiency(steps) -> dict:
+    """The splitting kernel's warp efficiency from the plain version's step
+    counts [spp, H, W] (`trace_split_reference(telemetry=True)`, the
+    nested loop's steps), lane i on pixel i, the last warp padded with
+    idle lanes: the steps over 32 times the sum, over warps, of what a warp
+    pays.  A nested sample x step loop pays, sample by sample, its longest
+    lane's steps; a flat loop, its longest lane's steps over all
+    samples."""
+    spp = steps.shape[0]
+    lanes = steps.reshape(spp, -1).double()
+    lanes = torch.nn.functional.pad(lanes, (0, -lanes.shape[1] % 32)).reshape(spp, -1, 32)
+    work = lanes.sum().item()
+    return {"nested": work / (32 * lanes.amax(2).sum().item()),
+            "flat": work / (32 * lanes.sum(0).amax(1).sum().item()),
+            "steps_per_sample": work / steps[0].numel() / spp}
+
+
 def split_vs_plain(dev, golden) -> dict:
     """Phase 21: the splitting kernel against `trace_split_reference` on the
     card: config 3's glass scene at 512x512 / 8 b / 4 spp, the reference
     scene at 800x600 / 15 / 1, a ragged 333x97, stack depths 1, 2, 4 and 14
     at 15 bounces, the mixed-kinds scene, 1000 spheres (64 KB of tables,
     in shared memory above the 48 KB default) and 4000 (256 KB, read from
-    device memory); the split-free witness against the forward kernel; and
-    the forward and backward kernels against their plain versions on the
-    large scenes."""
+    device memory), each bit-equal in rng and radiance (on a scene without
+    glass the radiance may instead equal the forward kernel's bit for bit);
+    the split-free witness against the forward kernel; and the forward and
+    backward kernels against their plain versions on the large scenes."""
     origin, ref, cam4 = Camera.create(*ORIGIN_POSE, 90.0, dev), world.initial_camera(dev), \
         Camera.create(*CAM4, 90.0, dev)
     glass = SC.suite_glass_scene(dev)
@@ -2275,6 +2300,12 @@ def split_vs_plain(dev, golden) -> dict:
         want = SP.trace_split_reference(scene, rays, rng, b, spp, sd)
         torch.cuda.synchronize()
         rec = strict_check(f"{label} {w}x{h} b{b} spp{spp} stack{sd}", got, want)
+        if not rec["bit_equal"] and not (MK.scene_tables(scene)[1][:, 5] == 2.0).any():
+            fwd = MK.trace_inline_fused(scene, rays, rng, b, spp, has_dielectric=False)
+            rec["bit_equal_forward_kernel"] = bool(torch.equal(got[0], fwd[0])
+                                                   and torch.equal(got[1], fwd[1]))
+        if not rec["rng_all_equal"] or not (rec["bit_equal"] or rec.get("bit_equal_forward_kernel")):
+            raise AssertionError(f"{rec['case']}: not bit-equal: {rec}")
         results.append({**rec, "segments": live_segments(rng, got[1]), "mean": want[0].mean().item()})
     out = {"max_abs_err": max(r["max_abs_err"] for r in results), "cases": results}
 
@@ -2421,9 +2452,10 @@ def split_times(dev, smi) -> tuple:
     (rays/s as suite.py:278 counts them, W H spp b) with its processed
     segments, and at the CLI shape (800x600 / 15 / 1) on the glass and the
     reference scenes, with `Renderer.step` and the plain version there,
-    each with its bound; the forward kernel at 800x600 / 15 / 1 on 1000
-    spheres through the large-table path.  Returns the record and the
-    kernels-line entry."""
+    each with its bound, the resources of the instance it takes and the
+    warp efficiency of the nested and the flat step loop on its paths; the
+    forward kernel at 800x600 / 15 / 1 on 1000 spheres through the
+    large-table path.  Returns the record and the kernels-line entry."""
     out = {"nvidia_smi": smi}
     glass, origin = SC.suite_glass_scene(dev), Camera.create(*ORIGIN_POSE, 90.0, dev)
     tables = (*MK.scene_tables(glass), MK.primitive_counts(glass))
@@ -2433,7 +2465,7 @@ def split_times(dev, smi) -> tuple:
     kernel = cuda_times(lambda: SP.launch_split(*tables, rays, rng, b, spp, sd), 10)
     segments = live_segments(rng, SP.launch_split(*tables, rays, rng, b, spp, sd)[1])
     t0 = time.perf_counter()
-    per_row = SP.trace_split_reference(glass, rays, rng, b, spp, sd, telemetry=True)[2].tolist()
+    _, _, per_row, steps = SP.trace_split_reference(glass, rays, rng, b, spp, sd, telemetry=True)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     nominal = w * h * spp * b
@@ -2441,7 +2473,9 @@ def split_times(dev, smi) -> tuple:
         "kernel": kernel, "rays_per_s_suite_count": nominal / (kernel["median_ms"] / 1e3),
         "kernel_segments": segments, "segment_share_of_nominal": segments / nominal,
         "segment_share_of_capacity": segments / (w * h * spp * b * (1 + sd)),
-        "plain": {"n": 1, "wall_s": plain_s}, **split_bound(tables, per_row, w * h)}
+        "plain": {"n": 1, "wall_s": plain_s}, **split_bound(tables, per_row.tolist(), w * h),
+        "warp_efficiency": split_warp_efficiency(steps),
+        "resources": SP.kernel_resources(tables[0], tables[2], sd, spp)}
 
     entries = {}
     for label, scene, cam in (("glass", glass, origin),
@@ -2450,16 +2484,20 @@ def split_times(dev, smi) -> tuple:
         rays, rng = primary_rays(cam, 800, 600), gen_seeds((600, 800), 0, dev)
         kernel = cuda_times(lambda: SP.launch_split(*tab, rays, rng, 15, 1, 2), 50)
         plain = cuda_times(lambda: SP.trace_split_reference(scene, rays, rng, 15, 1, 2), 3)
-        per_row = SP.trace_split_reference(scene, rays, rng, 15, 1, 2, telemetry=True)[2].tolist()
+        _, _, per_row, steps = SP.trace_split_reference(scene, rays, rng, 15, 1, 2, telemetry=True)
         renderer = Renderer(RenderConfig(algorithm="wavefront", split=True, queue_factor=2.0, device="cuda"))
         acc = renderer.init_accumulator(seed=0)
         step = cuda_times(lambda: renderer.step(scene, cam, acc, spp=1), 50)
         rec = {"kernel": kernel, "plain": plain, "renderer_step": step, "segments": live_segments(
-            rng, SP.launch_split(*tab, rays, rng, 15, 1, 2)[1]), **split_bound(tab, per_row, 800 * 600)}
+            rng, SP.launch_split(*tab, rays, rng, 15, 1, 2)[1]),
+            **split_bound(tab, per_row.tolist(), 800 * 600),
+            "warp_efficiency": split_warp_efficiency(steps),
+            "resources": SP.kernel_resources(tab[0], tab[2], 2, 1)}
         out[f"cli_shape_{label}_800x600_b15_spp1"] = rec
         if label == "glass":
             entries["split_kernel"] = {"ms": kernel["median_ms"], "plain_ms": plain["median_ms"],
-                                       "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"]}
+                                       "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                                       **{k: rec["resources"][k] for k in RESOURCE_KEYS}}
 
     # The forward kernel on 1000 spheres (64 KB of tables, shared memory
     # opted in above 48 KB) at the serving shape.

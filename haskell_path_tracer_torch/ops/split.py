@@ -16,6 +16,10 @@ same estimator on the XLA path's functions.
 The kernel is bound by fp32 ALU and SFU work, as the inline megakernel:
 per processed segment a fold over every primitive and one BRDF sample or
 Fresnel split, against 40 B read and 28 B written per pixel per launch.
+Each thread runs its pixel's samples as one flat loop of steps
+(`csrc/split.cuh:split_step`) whose rng and radiance are the nested sample
+x step loop's bit for bit; `kernel_resources` reports the instance's
+registers, stack and occupancy.
 It is built at first use with nvcc (`ops/megakernel.py:build_library`),
 named by a hash of its source, its headers and the flags.  Nothing falls
 back: a failed build or launch raises.
@@ -94,10 +98,12 @@ def trace_split_reference(
     """Plain PyTorch version of the splitting kernel on [H, W] planes:
     (radiance sum over `spp` samples [H, W, 3] f32, final rng [H, W, 4]
     int32), and with `telemetry` the processed segments per winning table
-    row [P] int64.  `stack_depth` is taken as `trace_split_fused` takes it,
-    through `clamp_stack_depth`.  The step loop ends once every lane is
-    done, which changes nothing: a lane with no segment and no child stays
-    so."""
+    row [P] int64 and the steps of each sample [spp, H, W] int32 (a step
+    is one iteration of the nested loop's step body: a segment traced, a
+    child popped, or the dead segment that ends the sample).
+    `stack_depth` is taken as `trace_split_fused` takes it, through
+    `clamp_stack_depth`.  The step loop ends once every lane is done,
+    which changes nothing: a lane with no segment and no child stays so."""
     where = torch.where
     geom, mat = MK.scene_tables(scene)
     counts = MK.primitive_counts(scene)
@@ -108,7 +114,8 @@ def trace_split_reference(
     izeros = torch.zeros(zeros.shape, dtype=torch.int32, device=zeros.device)
     acc = (zeros,) * 3
     per_row = torch.zeros(sum(counts), dtype=torch.int64, device=zeros.device)
-    for _ in range(spp):
+    steps = torch.zeros((spp, *zeros.shape), dtype=torch.int32, device=zeros.device)
+    for s in range(spp):
         o, d = po, pd
         th = (torch.ones_like(zeros),) * 3
         res = (zeros,) * 3
@@ -124,6 +131,7 @@ def trace_split_reference(
             alive = live & h["hit"] & (q > linalg.NEAR_ZERO_EPS) & (depth < num_bounces)
             if telemetry:
                 per_row += torch.bincount(h["best"][alive], minlength=len(per_row))
+                steps[s] += live.to(torch.int32)
             color = (h["cr"], h["cg"], h["cb"])
             # Emission at the old throughput.
             res = tuple(r + where(alive, c * h["il"] * t, 0.0) for r, c, t in zip(res, color, th))
@@ -172,7 +180,7 @@ def trace_split_reference(
             live = alive | pop
         acc = tuple(a + r for a, r in zip(acc, res))
     out = (torch.stack(acc, dim=-1), rng)
-    return (*out, per_row) if telemetry else out
+    return (*out, per_row, steps) if telemetry else out
 
 
 # The CUDA kernel ---------------------------------------------------------
@@ -197,8 +205,18 @@ def _library():
             vp, i, vp, i, i, i, i, vp, vp, vp, vp, vp, i, i, i, i, vp,
         ]
         lib.hpt_split_launch.restype = i
+        lib.hpt_split_resources.argtypes = [i, i, i, i, vp, vp]
+        lib.hpt_split_resources.restype = i
         _lib = lib
     return _lib
+
+
+def kernel_resources(geom, counts, stack_depth, spp) -> dict:
+    """What the card gives the splitting kernel's instance that a launch of
+    `spp` samples on these tables with `stack_depth` slots takes
+    (`ops/megakernel.py:resources`)."""
+    return MK.resources(_library().hpt_split_resources, geom.shape[1], sum(counts),
+                        stack_depth, spp)
 
 
 def launch_split(geom, mat, counts, rays, rng, num_bounces, spp, stack_depth):

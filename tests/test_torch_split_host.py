@@ -2,14 +2,18 @@
 
 ``csrc/split.cuh`` compiles under a plain C++ compiler as well as under
 nvcc, so ``tests/split_host.cpp`` builds it with g++ (FMA contraction off,
-as nvcc's ``-fmad=false``) and runs `split_pixel` — the splitting kernel's
-whole work for one pixel, on the tables of `ops/megakernel.py:scene_tables`
-— pixel by pixel.  These tests hold it against the plain PyTorch version,
-`ops/split.py:trace_split_reference`: every rng word equal and the radiance
-within 1e-6 (the host's sinf/cosf may differ from PyTorch's in the last
-bit), with the register stacks of 1, 2 and 4 slots and the local-memory
-stack, on glass, mixed kinds and the 300-sphere scene.  On the card,
-`chip_smoke.py` runs the same comparison against the CUDA build.
+as nvcc's ``-fmad=false``) and runs the kernel's flat step loop
+(`split_start`, `split_step`, `split_store`) on the tables of
+`ops/megakernel.py:scene_tables`: pixel by pixel, one lane alone
+(`split_pixel`), and in emulated warps of 32 lanes stepping in turn, their
+pixels handed out in a permuted queue order, each lane free as in the
+kernel or held to the warp's earliest sample.  These tests hold both against the plain PyTorch
+version, `ops/split.py:trace_split_reference`: every rng word equal and
+the radiance within 1e-6 (the host's sinf/cosf may differ from PyTorch's in
+the last bit), and the warp bit for bit against the lane alone, with the
+register stacks of 1, 2 and 4 slots and the local-memory stack, on glass,
+mixed kinds and the 300-sphere scene.  On the card, `chip_smoke.py` runs
+the same comparison against the CUDA build.
 """
 
 import ctypes
@@ -52,6 +56,9 @@ def lib(tmp_path_factory):
     lib.hpt_split_host.restype = None
     lib.hpt_stack_capacity.argtypes = [i]
     lib.hpt_stack_capacity.restype = i
+    lib.hpt_split_warp_host.argtypes = [vp, i, vp, i, i, i, i, vp, vp, vp, vp, vp, vp,
+                                        i, i, i, i, i, i]
+    lib.hpt_split_warp_host.restype = ctypes.c_long
     return lib
 
 
@@ -94,3 +101,71 @@ def test_pixel_code_matches_plain_version(lib, name, bounces, spp, stack_depth):
         torch.testing.assert_close(rad, want[0], rtol=1e-6, atol=1e-6)
     # Segments were traced (each alive one advances the rng counter by 3).
     assert torch.isfinite(rad).all() and (want[1][..., 3] != rng[..., 3]).any()
+
+
+def _warp(lib, scene, rays, rng, order, bounces, spp, stack_depth, cap, barrier):
+    geom, mat = MK.scene_tables(scene)
+    rad = torch.empty(H, W, 3)
+    rng_out = torch.empty(H, W, 4, dtype=torch.int32)
+    rounds = lib.hpt_split_warp_host(
+        geom.data_ptr(), geom.shape[1], mat.data_ptr(), *MK.primitive_counts(scene),
+        rays.origin.contiguous().data_ptr(), rays.direction.contiguous().data_ptr(),
+        rng.data_ptr(), order.data_ptr(), rad.data_ptr(), rng_out.data_ptr(), H * W, spp,
+        bounces, stack_depth, cap, barrier)
+    return rad, rng_out, rounds
+
+
+@pytest.mark.parametrize("stack_depth", [1, 2, 4, 5])
+@pytest.mark.parametrize("spp", [1, 2, 5])
+@pytest.mark.parametrize("name", ["glass", "mixed", "big300"])
+def test_flat_loop_in_an_emulated_warp(lib, name, spp, stack_depth):
+    """The kernel's warps: 32 lanes, each on its own pixel, sample and
+    step, their pixels handed out in a permuted order, free (as the kernel
+    runs them) and held to the warp's earliest sample, give every pixel the
+    bits of one lane run alone, and the plain version's rng and radiance.
+    Stack depth 5 takes the local-memory stack."""
+    bounces = 6
+    build, pose = SCENES[name]
+    scene = build("cpu")
+    cam = Camera.create(*pose, 90.0, "cpu")
+    rays, rng = primary_rays(cam, W, H), gen_seeds((H, W), 70 + spp, "cpu")
+    cap = lib.hpt_stack_capacity(stack_depth)
+    assert cap == (stack_depth if stack_depth in (1, 2, 4) else 0)
+    order = torch.randperm(H * W, generator=torch.Generator().manual_seed(spp + stack_depth))
+    order = order.to(torch.int32)
+    alone = _host(lib, scene, rays, rng, bounces, spp, stack_depth, cap)
+    want = SP.trace_split_reference(scene, rays, rng, bounces, spp, stack_depth, telemetry=True)
+    rounds = {}
+    for barrier in (1, 0):
+        rad, rng_out, rounds[barrier] = _warp(lib, scene, rays, rng, order, bounces, spp,
+                                              stack_depth, cap, barrier)
+        assert torch.equal(rad, alone[0]) and torch.equal(rng_out, alone[1]), barrier
+        assert torch.equal(rng_out, want[1])
+        torch.testing.assert_close(rad, want[0], rtol=1e-6, atol=1e-6)
+    # Held to the warp's earliest sample, a warp pays at most, sample by
+    # sample, its longest lane's steps of the nested loop; free, no more.
+    lanes = want[3].reshape(spp, -1)[:, order.long()].reshape(spp, -1, 32)
+    assert rounds[0] <= rounds[1] <= lanes.amax(2).sum().item()
+    assert (rng_out[..., 3] != rng[..., 3]).any()
+
+
+@pytest.mark.parametrize("name,bounces,stack_depth", [
+    ("glass", 2, 1), ("glass", 3, 1), ("glass", 4, 1), ("glass", 5, 1), ("glassy", 2, 1),
+    ("glassy", 3, 1),
+])
+def test_step_budget_ends_samples_as_the_nested_loop(lib, name, bounces, stack_depth):
+    """Where samples use up their bounces x (1 + stack_depth) steps of the
+    nested loop, the flat loop, which runs a pop and a sample's end in the
+    step that found the dead segment, still ends each sample after that
+    many of the nested loop's steps."""
+    build, pose = SCENES[name]
+    scene = build("cpu")
+    rays, rng = primary_rays(Camera.create(*pose, 90.0, "cpu"), W, H), gen_seeds((H, W), 5, "cpu")
+    want = SP.trace_split_reference(scene, rays, rng, bounces, 1, stack_depth, telemetry=True)
+    assert (want[3] == bounces * (1 + stack_depth)).any()
+    cap = lib.hpt_stack_capacity(stack_depth)
+    order = torch.arange(H * W, dtype=torch.int32)
+    for rad, rng_out in (_host(lib, scene, rays, rng, bounces, 1, stack_depth, cap),
+                         _warp(lib, scene, rays, rng, order, bounces, 1, stack_depth, cap, 1)[:2]):
+        assert torch.equal(rng_out, want[1])
+        torch.testing.assert_close(rad, want[0], rtol=1e-6, atol=1e-6)
