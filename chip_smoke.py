@@ -17,8 +17,8 @@ without printing a result:
      the NEE kernel's instances and the probe (registers, stack frame,
      spills per template instance; the NEE backward's instances too), and
      the registers, stack bytes and resident warps per SM of the NEE
-     instances, the probe and the NEE backward in both modes that config
-     4's and config 7's launches take;
+     instances, the probe (on 1000 spheres and on 20000) and the NEE
+     backward in both modes that config 4's and config 7's launches take;
   3. forward kernel against its plain PyTorch version on the card, at
      800x600 / 15 bounces / 1 spp, 512x512 / 8 bounces / 4 spp and a
      ragged 333x97, on the reference, mixed-kinds and glass scenes and with
@@ -73,7 +73,9 @@ without printing a result:
  12. NEE kernel against the JAX package's outputs
      (tests/data/torch_port_nee_golden.npz);
  13. probe against the plain fold (eps = 0) on the config-4 scene, and
-     presort against raster order, bit for bit;
+     presort against raster order, bit for bit; both again on the
+     reference, triangle-emitter and box/triangle scenes and on 20000
+     spheres at 320x180 (20 of the probe's table tiles);
  14. the physical serving path end to end: the CLI with `--variant
      physical` renders the reference scene at 800x600, 15 bounces, 64 spp
      (one NEE launch per step, lane parity with the same CLI run with
@@ -83,7 +85,7 @@ without printing a result:
  15. NEE times: the kernel at configs 6 and 8 (512x512 / 16 spp / 4
      bounces) and 4 (1920x1088 / 256 spp / 4 bounces, presort on and off,
      3 calls each) with the live share from the telemetry, the probe
-     alone, the kernel and its plain version at the serving shape
+     alone (and at 800x600, and on 20000 spheres at 320x180), the kernel and its plain version at the serving shape
      (800x600 / 15 / 1 spp), and `Renderer.step` at 1 spp; the warp
      efficiency (lane-mean live bounces over the warp's cost) at config 4,
      raster and presorted, and of the recording instance at config 7's
@@ -220,7 +222,7 @@ shape (the forward and the NEE kernel at 800x600 / 15 bounces / 1 spp, the
 recording forward and both backward kernels at 512x512 / 64 spp / 8
 bounces, with the parity kernels' and the NEE kernel's instances'
 registers, stack bytes and resident warps per SM, the probe at 800x600 on the
-config-4 scene, the NEE kernel's recording instance and the NEE backward
+config-4 scene with its registers, stack bytes and resident warps, the NEE kernel's recording instance and the NEE backward
 in both modes at 512x512 / 1 / 4 on config 7's scene, the two folds at
 1920x1088 on it with their registers, stack bytes and resident warps per
 SM, the splitting kernel at 800x600 / 15 / 1 on config 3's
@@ -369,8 +371,8 @@ def nee_ptxas_summary() -> dict:
                 out[f"{m.group(1)}<{','.join(args)}>"] = rep
             elif half:
                 out[f"{half.group(1)}<{half.group(2)},{half.group(3)}>"] = rep
-            elif "probe_kernel" in fn:
-                out["probe_kernel"] = rep
+            elif probe := re.search(r"probe_kernelILi(\d)E", fn):
+                out[f"probe_kernel<{probe.group(1)}>"] = rep
     return out
 
 
@@ -378,8 +380,9 @@ def nee_kernel_resources(dev) -> dict:
     """Registers, stack bytes and resident warps per SM of the instances
     that config 4's and config 7's launches take (1000 spheres, matte): the
     production instance in raster order, the persistent one presorted, the
-    recording one in the gradient's sorted frame (persistent), the probe,
-    and the NEE backward in the replay and the residual mode."""
+    recording one in the gradient's sorted frame (persistent), the probe
+    (and on 20000 spheres, two tiles of shared memory), and the NEE
+    backward in the replay and the residual mode."""
     tables = NE.nee_scene_tables(SC.big_scene(dev, 1000))
     keep = ("instance", "registers", "stack_bytes", "warps_per_sm", "threads", "blocks_per_sm")
     return {name: {k: r[k] for k in keep} for name, r in (
@@ -387,6 +390,8 @@ def nee_kernel_resources(dev) -> dict:
         ("nee_megakernel_presorted", NE.kernel_resources(tables, persistent=True)),
         ("nee_megakernel_record", NE.kernel_resources(tables, record=True, persistent=True)),
         ("primary_probe", NE.kernel_resources(tables, probe=True)),
+        ("primary_probe_big20000",
+         NE.kernel_resources(NE.nee_scene_tables(SC.big_scene(dev, 20000)), probe=True)),
         ("nee_megakernel_vjp", NV.kernel_resources(tables, residual=False)),
         ("nee_megakernel_vjp_residual", NV.kernel_resources(tables, residual=True)))}
 
@@ -1028,11 +1033,41 @@ def nee_vs_golden(dev) -> list:
     return results
 
 
+def probe_vs_plain(label, t0, prim0, t_ref, prim_ref) -> dict:
+    """The probe's (t0, prim0) against the plain fold's: winners equal on at
+    least PROBE_PRIM_MIN of the rays, t within PROBE_T_RTOL where both hit
+    the same primitive, equal where both miss."""
+    same = prim0 == prim_ref
+    share = same.double().mean().item()
+    hit = same & (t_ref < INFINITE)
+    rel = ((t0 - t_ref).abs() / t_ref.abs())[hit].max().item() if hit.any() else 0.0
+    if share < PROBE_PRIM_MIN or rel > PROBE_T_RTOL or not torch.equal(t0[~hit & same], t_ref[~hit & same]):
+        raise AssertionError(f"probe, {label}: winners equal on {share:.6f}, t rel {rel}")
+    return {"case": label, "prim_equal": share, "t_rel_err_max": rel,
+            "max_abs_err": (t0 - t_ref)[hit].abs().max().item() if hit.any() else 0.0,
+            "sky_share": (t_ref >= INFINITE).double().mean().item()}
+
+
+def presort_identical(label, scene, rays, rng, bounces, spp) -> None:
+    """The NEE kernel with the presort (probe, argsort, lane order, the
+    persistent instance) against raster order, bit for bit."""
+    raster = NE.trace_physical_nee(scene, rays, rng, bounces, spp, presort=False, telemetry=True)
+    presorted = NE.trace_physical_nee(scene, rays, rng, bounces, spp, presort=True, telemetry=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(raster, presorted)):
+        raise AssertionError(f"presort, {label}: a pixel's radiance, rng or telemetry changed")
+
+
+# Phase 13's further scenes (nee_cases): planes, boxes and triangles after
+# the spheres, and 20000 spheres, 20 of the probe's shared-memory tiles.
+PRESORT_CASES = ("reference", "tri_emitters", "box_tri", "big20000")
+
+
 def probe_check(dev) -> dict:
     """Phase 13: the probe against the plain fold on the config-4 scene at
     1920x1088 (the plain fold over row tiles), and the NEE kernel with the
-    presort (probe, argsort, lane order) against raster order, bit for bit,
-    at 1920x1088 / 2 spp / 4 bounces."""
+    presort against raster order, bit for bit, at 1920x1088 / 2 spp / 4
+    bounces; then both on PRESORT_CASES at their phase-11 shapes."""
     scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
     rays, rng = primary_rays(cam, 1920, 1088), gen_seeds((1088, 1920), 7, dev)
     tables = NE.nee_scene_tables(scene)
@@ -1041,20 +1076,23 @@ def probe_check(dev) -> dict:
         tiles = [nearest_t_prim(rays.origin[r:r + 136], rays.direction[r:r + 136], scene, 0.0)
                  for r in range(0, 1088, 136)]
     t_ref, prim_ref = torch.cat([t for t, _ in tiles]), torch.cat([p for _, p in tiles]).to(torch.int32)
-    same = prim0 == prim_ref
-    share = same.double().mean().item()
-    hit = same & (t_ref < INFINITE)
-    rel = ((t0 - t_ref).abs() / t_ref.abs())[hit].max().item()
-    if share < PROBE_PRIM_MIN or rel > PROBE_T_RTOL or not torch.equal(t0[~hit & same], t_ref[~hit & same]):
-        raise AssertionError(f"probe: winners equal on {share:.6f}, t rel {rel}")
-    raster = NE.trace_physical_nee(scene, rays, rng, 4, 2, presort=False, telemetry=True)
-    presorted = NE.trace_physical_nee(scene, rays, rng, 4, 2, presort=True, telemetry=True)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(raster, presorted)):
-        raise AssertionError("presort changed a pixel's radiance, rng or telemetry")
-    return {"prim_equal": share, "t_rel_err_max": rel,
-            "max_abs_err": (t0 - t_ref)[hit].abs().max().item(),
-            "sky_share": (t_ref >= INFINITE).double().mean().item(), "presort_bit_identical": True}
+    main = probe_vs_plain("big1000 1920x1088", t0, prim0, t_ref, prim_ref)
+    presort_identical("big1000 1920x1088", scene, rays, rng, 4, 2)
+    cases = []
+    all_cases = nee_cases(dev)
+    for label in PRESORT_CASES:
+        scene, cam, w, h, bounces, spp = all_cases[label]
+        rays, rng = primary_rays(cam, w, h), gen_seeds((h, w), 11, dev)
+        tables = NE.nee_scene_tables(scene)
+        t0, prim0 = NE.launch_probe(tables, rays)
+        with plain_sphere_fold():
+            t_ref, prim_ref = nearest_t_prim(rays.origin, rays.direction, scene, 0.0)
+        case = probe_vs_plain(f"{label} {w}x{h}", t0, prim0, t_ref, prim_ref.to(torch.int32))
+        presort_identical(case["case"], scene, rays, rng, bounces, spp)
+        cases.append({**case, "presort_bit_identical": True, "primitives": list(tables.counts)})
+    return {**{k: v for k, v in main.items() if k != "case"}, "presort_bit_identical": True,
+            "max_abs_err": max([main["max_abs_err"]] + [c["max_abs_err"] for c in cases]),
+            "cases": cases}
 
 
 def physical_main_path(dev) -> dict:
@@ -1194,6 +1232,11 @@ def nee_times(dev, smi) -> tuple:
     with plain_sphere_fold():
         probe_plain = cuda_times(lambda: nearest_t_prim(rays4.origin, rays4.direction, scene4, 0.0), 3)
     out["probe_800x600_big1000"] = {"kernel": probe_main, "plain": probe_plain, **probe_bound(tables4, rays4)}
+    # And on 20000 spheres at 320x180 (20 tiles of the table).
+    tables20k = NE.nee_scene_tables(SC.big_scene(dev, 20000))
+    rays20k = primary_rays(cam4, 320, 180)
+    out["probe_320x180_big20000"] = {"kernel": cuda_times(lambda: NE.launch_probe(tables20k, rays20k), 20),
+                                     **probe_bound(tables20k, rays20k)}
     entries = {
         "nee_megakernel": {"ms": kernel["median_ms"], "plain_ms": plain["median_ms"],
                            "bound_ms": nee_b["bound_ms"], "bound_by": nee_b["bound_by"]},
@@ -2812,6 +2855,7 @@ def main() -> int:
         "max_abs_err": probe["max_abs_err"],
         **nee_entries["primary_probe"],
         "library_ms": None,
+        **{k: nee_res["primary_probe"][k] for k in RESOURCE_KEYS},
     }, {
         "name": "nee_megakernel_record",
         "route": "cuda",

@@ -10,10 +10,20 @@
 // over the tables that answers both the BSDF ray's nearest hit and the
 // shadow ray's occlusion, and the NEE contribution.  probe_kernel replaces
 // _primary_kernel (launched by primary_probe and the presort): the camera
-// rays' nearest (t0, prim0) over all four kinds, eps = 0, through the same
-// device function as nee_kernel's primary fold, so feeding the probe's
-// output back in (t0_in, prim0_in) gives nee_kernel's results bit for bit.
-// The per-pixel code is in nee.cuh.
+// rays' nearest (t0, prim0) over all four kinds, eps = 0, with the
+// decisions of nee_kernel's primary fold (nee::primary_hit) bit for bit, so
+// feeding the probe's output back in (t0_in, prim0_in) gives nee_kernel's
+// results bit for bit.  The per-pixel code is in nee.cuh, the probe's
+// per-ray code in probe.cuh.
+//
+// What bounds the probe: fp32 work, ~19 operations per sphere per ray
+// against 32 B of device memory traffic per ray.  Its design is the
+// nearest-sphere fold's (sphere_fold.cu): the sphere rows stream through
+// shared memory in index-ordered cp.async tiles (tiles.cuh), so a table of
+// any size is read from shared memory, and a row that misses costs its
+// discriminant alone (sphere_fold.cuh:fold_rows).  A row costs about 21
+// issue slots (17 fp32 operations, a shared load, the compare and branch),
+// so the issue rate, not the fp32 count, is the floor.
 //
 // What bounds it: fp32 work.  Per live bounce a thread runs the pair test
 // of every sphere twice (nearest and shadow, one shared `center - point`
@@ -79,6 +89,8 @@
 #include <cuda_runtime.h>
 
 #include "nee.cuh"
+#include "probe.cuh"
+#include "tiles.cuh"
 
 namespace {
 
@@ -88,10 +100,15 @@ using namespace hpt;
 // caps them at 64 registers (about 100 B of spills) for 32 warps per SM.
 // Measured on the H100 against 128 x 1-8 and 256 x 1-5 (PERF.md): the best
 // at config 4 in both frames and at config 7's 1920x1088 / 8 / 4.  The
-// probe keeps 128-thread blocks.
+// probe takes #7's launch shape (sphere_fold.cu): 128-thread blocks, at
+// least 4 per SM; but one ray per thread, which the H100 measured faster
+// than #7's two (40 registers and 48 warps per SM against 47 and 40) and
+// than four (PERF.md).
 constexpr int kNeeThreads = 256;
 constexpr int kNeeMinBlocks = 4;
-constexpr int kThreads = 128;
+constexpr int kProbeThreads = 128;
+constexpr int kProbeMinBlocks = 4;
+constexpr int kProbeRays = 1;
 constexpr int kSmemTableBytes = 48 * 1024;
 
 // Copies the fold tables into shared memory when they fit; returns the
@@ -183,21 +200,58 @@ nee_persistent_kernel(nee::Scene S, bool in_smem, const float* __restrict__ orig
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-probe_kernel(nee::Scene S, bool in_smem, const float* __restrict__ origin,
+// The probe, R = kProbeRays rays per thread: slot r of thread x in block b
+// takes ray (b R + r) kProbeThreads + x, R coalesced loads per operand.
+// The sphere rows stream through shared memory in tiles (tiles.cuh), every
+// row read once for the thread's R rays (probe.cuh); then each ray folds
+// the planes, boxes and triangles from the L1 cache.  Slots past num_rays
+// fold the block's first ray and store nothing, so every thread reaches
+// every barrier.
+template <int R>
+__global__ void __launch_bounds__(kProbeThreads, kProbeMinBlocks)
+probe_kernel(nee::Scene S, const float* __restrict__ origin,
              const float* __restrict__ direction, float* __restrict__ t0,
              int* __restrict__ prim0, int num_rays) {
-  S = stage_tables(S, in_smem);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= num_rays) return;
-  const float o[3] = {origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]};
-  const float d[3] = {direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]};
-  float t;
-  int prim;
-  nee::primary_hit(S, o, d, t, prim);
-  t0[i] = t;
-  prim0[i] = prim;
+  extern __shared__ float4 smem[];
+  const int first = blockIdx.x * (R * kProbeThreads);
+  sphere_fold::Lanes<R, false> L;
+  int lane[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = first + r * kProbeThreads + threadIdx.x;
+    lane[r] = k < num_rays ? k : -1;
+    L.load(r, k < num_rays ? k : first, origin, direction, nullptr, nullptr, nullptr);
+  }
+  const float4* spheres = reinterpret_cast<const float4*>(S.fold);
+  const int num_tiles = (S.ns + tiles::kTileRows - 1) / tiles::kTileRows;
+  if (num_tiles > 0) tiles::issue_tile<kProbeThreads>(spheres, S.ns, 0, smem);
+  for (int k = 0; k < num_tiles; ++k) {
+    if (k + 1 < num_tiles) {
+      tiles::issue_tile<kProbeThreads>(spheres, S.ns, k + 1, smem);
+      tiles::wait_async<1>();
+    } else {
+      tiles::wait_async<0>();
+    }
+    __syncthreads();
+    const int base = k * tiles::kTileRows;
+    sphere_fold::fold_rows<R, false>(
+        reinterpret_cast<const float*>(smem + (k & 1) * tiles::kTileRows), base,
+        min(tiles::kTileRows, S.ns - base), 0.0f, L);
+    __syncthreads();  // tile k's buffer is refilled at step k + 1
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane[r];
+    if (i < 0) continue;
+    probe::fold_tails(S, L.o[r], L.d[r], L.t[r], L.prim[r]);
+    t0[i] = L.t[r];
+    prim0[i] = L.prim[r];
+  }
 }
+
+const KernelInstance kProbe = {
+    kProbeRays == 1 ? "probe_kernel<1>" : kProbeRays == 2 ? "probe_kernel<2>" : "probe_kernel<4>",
+    reinterpret_cast<const void*>(probe_kernel<kProbeRays>)};
 
 size_t smem_bytes(int fold_floats) {
   const size_t bytes = sizeof(float) * (size_t)fold_floats;
@@ -308,29 +362,31 @@ extern "C" int hpt_probe_launch(const float* fold, int num_spheres,
   const nee::Scene S{fold, nullptr, nullptr, num_spheres, num_planes,
                      num_boxes, num_triangles, 0};
   if (num_rays > 0) {
-    const size_t smem = smem_bytes(S.fold_floats());
-    const int blocks = (num_rays + kThreads - 1) / kThreads;
-    probe_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        S, smem > 0, origin, direction, t0, prim0, num_rays);
+    constexpr int per_block = kProbeRays * kProbeThreads;
+    probe_kernel<kProbeRays><<<(num_rays + per_block - 1) / per_block, kProbeThreads,
+                               tiles::table_smem(num_spheres),
+                               static_cast<cudaStream_t>(stream)>>>(S, origin, direction, t0,
+                                                                    prim0, num_rays);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // What the card gives the instance that a launch on `fold_floats` floats of
-// fold tables takes (bounce.cuh:kernel_resources): out[7], and its name;
-// probe != 0 asks for the probe, else the NEE kernel's instance by kinds,
-// record and persistent (the instance launches with the probe's primary
-// hits take).  Returns cudaGetLastError() (0 = answered), which also
-// clears the error for the next launch's check.
-extern "C" int hpt_nee_resources(int fold_floats, int has_glossy, int has_diel,
-                                 int record, int persistent, int probe, int* out,
+// fold tables, num_spheres of them spheres, takes
+// (bounce.cuh:kernel_resources): out[7], and its name; probe != 0 asks for
+// the probe, else the NEE kernel's instance by kinds, record and
+// persistent (the instance launches with the probe's primary hits take).
+// Returns cudaGetLastError() (0 = answered), which also clears the error
+// for the next launch's check.
+extern "C" int hpt_nee_resources(int fold_floats, int num_spheres, int has_glossy,
+                                 int has_diel, int record, int persistent, int probe, int* out,
                                  const char** name) {
-  const size_t smem = smem_bytes(fold_floats);
-  const KernelInstance k =
-      probe ? KernelInstance{"probe_kernel", reinterpret_cast<const void*>(probe_kernel)}
+  const KernelInstance& k =
+      probe ? kProbe
             : kInstances[(persistent ? 8 : 0) + (has_glossy ? 4 : 0) + (has_diel ? 2 : 0) +
                          (record ? 1 : 0)];
   *name = k.name;
-  kernel_resources(k.fn, probe ? kThreads : kNeeThreads, smem, out);
+  kernel_resources(k.fn, probe ? kProbeThreads : kNeeThreads,
+                   probe ? tiles::table_smem(num_spheres) : smem_bytes(fold_floats), out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,17 +56,18 @@
 #include <cuda_runtime.h>
 
 #include "sphere_fold.cuh"
+#include "tiles.cuh"
 
 namespace {
 
 using namespace hpt;
 
+using tiles::issue_tile;
+using tiles::kTileRows;
+using tiles::wait_async;
+
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;
-constexpr int kTileRows = 1024;
-// Two tiles, 32 KB, the most dynamic shared memory a block takes: under
-// the 48 KB a launch may take without raising the kernel's limit.
-static_assert(2 * kTileRows * sizeof(float4) <= 48 * 1024, "two tiles exceed 48 KB");
 constexpr int kCompactThreads = 256;
 
 struct FoldArgs {
@@ -84,28 +85,6 @@ struct FoldArgs {
   const int* live;  // the dual fold's live-lane count, then their indices
   int num_rays;
 };
-
-__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void commit_async() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void wait_async() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Tile k of the table (rows [k kTileRows, ...)) into buffer k & 1.
-__device__ __forceinline__ void issue_tile(const float4* spheres, int num_spheres, int k,
-                                           float4* smem) {
-  const int base = k * kTileRows;
-  const int rows = min(kTileRows, num_spheres - base);
-  float4* dst = smem + (k & 1) * kTileRows;
-  for (int j = threadIdx.x; j < rows; j += kThreads) copy16_async(dst + j, spheres + base + j);
-  commit_async();
-}
 
 // Slot r of thread x in block b folds ray b R kThreads + r kThreads + x of
 // the rays (the dual fold's live list): R coalesced loads per operand.
@@ -126,10 +105,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fold_kernel(const FoldAr
     L.load(r, i, a.ray_o, a.ray_d, a.d_shadow, a.t_light, a.light_idx);
   }
   const int tiles = (a.num_spheres + kTileRows - 1) / kTileRows;
-  if (tiles > 0) issue_tile(a.spheres, a.num_spheres, 0, smem);
+  if (tiles > 0) issue_tile<kThreads>(a.spheres, a.num_spheres, 0, smem);
   for (int k = 0; k < tiles; ++k) {
     if (k + 1 < tiles) {
-      issue_tile(a.spheres, a.num_spheres, k + 1, smem);
+      issue_tile<kThreads>(a.spheres, a.num_spheres, k + 1, smem);
       wait_async<1>();
     } else {
       wait_async<0>();
@@ -183,21 +162,10 @@ const KernelInstance kDual = {"fold_kernel<1,true>",
 // Rays per thread: 2 in the nearest fold while every SM still gets
 // kMinBlocks blocks of the num_rays rays; else, and in the dual fold, 1.
 int rays_per_thread(bool dual, int num_rays) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return !dual && (long long)num_rays >= 2LL * kThreads * kMinBlocks * sms ? 2 : 1;
+  return !dual && (long long)num_rays >= 2LL * kThreads * kMinBlocks * tiles::sm_count() ? 2 : 1;
 }
 
 const KernelInstance& instance(bool dual, int rays) { return dual ? kDual : kNearest[rays - 1]; }
-
-// Shared memory for the table: all of it in one tile, else two tiles.
-size_t table_smem(int num_spheres) {
-  return sizeof(float4) * (num_spheres <= kTileRows ? (size_t)num_spheres : 2 * (size_t)kTileRows);
-}
 
 cudaError_t launch_fold(bool dual, const FoldArgs& a, cudaStream_t stream) {
   const int rays = rays_per_thread(dual, a.num_rays);
@@ -205,7 +173,7 @@ cudaError_t launch_fold(bool dual, const FoldArgs& a, cudaStream_t stream) {
   const int per_block = rays * kThreads;
   void* args[] = {const_cast<FoldArgs*>(&a)};
   return launch_instance(k.fn, (a.num_rays + per_block - 1) / per_block, kThreads,
-                         table_smem(a.num_spheres), args, stream);
+                         tiles::table_smem(a.num_spheres), args, stream);
 }
 
 }  // namespace
@@ -254,6 +222,6 @@ extern "C" int hpt_sphere_fold_resources(int dual, int num_rays, int num_spheres
                                          const char** name) {
   const KernelInstance& k = instance(dual != 0, rays_per_thread(dual != 0, num_rays));
   *name = k.name;
-  kernel_resources(k.fn, kThreads, table_smem(num_spheres), out);
+  kernel_resources(k.fn, kThreads, tiles::table_smem(num_spheres), out);
   return static_cast<int>(cudaGetLastError());
 }

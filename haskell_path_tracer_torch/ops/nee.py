@@ -5,8 +5,10 @@ whole physical/NEE sample x bounce loop, launched there by
 ``_trace_nee_from_tables``) and ``_primary_kernel`` (the camera rays'
 nearest (t0, prim0), launched by ``primary_probe`` and the presort).  Both
 are hand-written CUDA C++ in ``csrc/nee_megakernel.cu`` (device functions
-in ``csrc/nee.cuh``), one library, built at first use with nvcc like the
-parity kernels (`ops/megakernel.py:build_library`).
+in ``csrc/nee.cuh``, the probe's in ``csrc/probe.cuh``: the nearest-sphere
+fold's per-ray code over the sphere rows in shared-memory tiles), one
+library, built at first use with nvcc like the parity kernels
+(`ops/megakernel.py:build_library`).
 
 On CUDA tensors `trace_physical_nee` launches the NEE kernel and
 `primary_probe` the probe; on CPU tensors they run the plain versions,
@@ -50,7 +52,8 @@ from . import megakernel as MK
 from .intersect import _payload_table, nearest_t_prim
 
 SOURCE = os.path.join(MK.CSRC, "nee_megakernel.cu")
-HEADERS = (os.path.join(MK.CSRC, "nee.cuh"), os.path.join(MK.CSRC, "bounce.cuh"))
+HEADERS = tuple(os.path.join(MK.CSRC, h) for h in ("nee.cuh", "bounce.cuh", "probe.cuh",
+                                                    "sphere_fold.cuh", "tiles.cuh"))
 
 # Launches of each CUDA kernel by `launch_nee` and `launch_probe`
 # ("nee_megakernel" counts every launch of the NEE kernel), and
@@ -195,7 +198,7 @@ def _library():
         lib.hpt_nee_launch.restype = i
         lib.hpt_probe_launch.argtypes = [vp, i, i, i, i, vp, vp, vp, vp, i, vp]
         lib.hpt_probe_launch.restype = i
-        lib.hpt_nee_resources.argtypes = [i, i, i, i, i, i, vp, vp]
+        lib.hpt_nee_resources.argtypes = [i, i, i, i, i, i, i, vp, vp]
         lib.hpt_nee_resources.restype = i
         _lib = lib
     return _lib
@@ -212,8 +215,8 @@ def kernel_resources(tables: NeeTables, has_glossy=False, has_diel=False, record
         if err != 0:
             raise RuntimeError(f"NEE kernel resource query failed: cudaError {err}")
 
-    return MK.resources(query, tables.fold.numel(), int(has_glossy), int(has_diel), int(record),
-                        int(persistent), int(probe))
+    return MK.resources(query, tables.fold.numel(), tables.counts[0], int(has_glossy),
+                        int(has_diel), int(record), int(persistent), int(probe))
 
 
 def _check_tables(tables: NeeTables, device):
@@ -237,6 +240,9 @@ def launch_probe(tables: NeeTables, rays: Rays):
     shape = tuple(rays.origin.shape[:-1])
     n = int(np.prod(shape))
     _check_tables(tables, device)
+    if tables.fold.data_ptr() % 16:
+        raise ValueError("tables.fold: the probe copies sphere rows 16 bytes at a time; "
+                         "pass a 16-byte-aligned table (`nee_scene_tables`)")
     MK._check("rays.origin", rays.origin, torch.float32, (*shape, 3), device)
     MK._check("rays.direction", rays.direction, torch.float32, (*shape, 3), device)
     t0 = torch.empty(shape, dtype=torch.float32, device=device)

@@ -47,7 +47,8 @@ from .intersect import (
 from ..models.objects import Spheres
 
 SOURCE = os.path.join(MK.CSRC, "sphere_fold.cu")
-HEADERS = tuple(os.path.join(MK.CSRC, h) for h in ("sphere_fold.cuh", "nee.cuh", "bounce.cuh"))
+HEADERS = tuple(os.path.join(MK.CSRC, h)
+                for h in ("sphere_fold.cuh", "tiles.cuh", "nee.cuh", "bounce.cuh"))
 
 # Launches of each kernel by `launch_nearest_fold` and `launch_dual_fold`.
 # Callers reset the counts to 0 to count the launches of a run.

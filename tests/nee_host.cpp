@@ -4,13 +4,18 @@
 // pixel, on a machine without a GPU and hold it against the plain PyTorch
 // version, and run the kernel's flat sample loop (nee.cuh:lane_step) in
 // lockstep over 32-lane groups, as a warp runs it, against the nested
-// sample x bounce loop it replaced, kept here as the oracle.  A test tool
-// only: nothing in the package calls it.
+// sample x bounce loop it replaced, kept here as the oracle; and runs the
+// probe's fold (probe.cuh) as its kernel does, in R-ray groups over the
+// sphere table in tiles, against `nee::primary_hit`.  A test tool only:
+// nothing in the package calls it.
 //
 //   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC
 //       -I haskell_path_tracer_torch/csrc -o libnee_host.so nee_host.cpp
 
+#include <vector>
+
 #include "nee.cuh"
+#include "probe.cuh"
 
 using namespace hpt;
 
@@ -48,6 +53,51 @@ extern "C" void hpt_probe_host(const float* fold, int ns, int np, int nb,
   const nee::Scene S{fold, nullptr, nullptr, ns, np, nb, nt, 0};
   for (int i = 0; i < num_rays; ++i)
     nee::primary_hit(S, origin + 3 * i, direction + 3 * i, t0[i], prim0[i]);
+}
+
+namespace {
+
+// probe_kernel's work: the rays in groups of R, the last group's empty
+// slots folding its first ray and storing nothing; each group over the
+// sphere rows in tiles of tile_rows rows, each tile copied into a buffer
+// as the kernel stages it in shared memory, then over the other kinds.
+template <int R>
+void probe_tiled(const nee::Scene& S, int tile_rows, const float* origin,
+                 const float* direction, float* t0, int* prim0, int num_rays) {
+  std::vector<float> tile(4 * (size_t)tile_rows);
+  for (int first = 0; first < num_rays; first += R) {
+    sphere_fold::Lanes<R, false> L;
+    for (int r = 0; r < R; ++r)
+      L.load(r, first + r < num_rays ? first + r : first, origin, direction, nullptr, nullptr,
+             nullptr);
+    for (int base = 0; base < S.ns; base += tile_rows) {
+      const int rows = S.ns - base < tile_rows ? S.ns - base : tile_rows;
+      for (int j = 0; j < 4 * rows; ++j) tile[j] = S.sphere(base)[j];
+      sphere_fold::fold_rows<R, false>(tile.data(), base, rows, 0.0f, L);
+    }
+    for (int r = 0; r < R && first + r < num_rays; ++r) {
+      probe::fold_tails(S, L.o[r], L.d[r], L.t[r], L.prim[r]);
+      t0[first + r] = L.t[r];
+      prim0[first + r] = L.prim[r];
+    }
+  }
+}
+
+}  // namespace
+
+// The probe kernel's fold (R = 1, 2 or 4 rays per group) over the sphere
+// rows in tiles of tile_rows rows.
+extern "C" void hpt_probe_tiled_host(int rays_per_thread, int tile_rows, const float* fold,
+                                     int ns, int np, int nb, int nt, const float* origin,
+                                     const float* direction, float* t0, int* prim0,
+                                     int num_rays) {
+  const nee::Scene S{fold, nullptr, nullptr, ns, np, nb, nt, 0};
+  if (rays_per_thread == 4)
+    probe_tiled<4>(S, tile_rows, origin, direction, t0, prim0, num_rays);
+  else if (rays_per_thread == 2)
+    probe_tiled<2>(S, tile_rows, origin, direction, t0, prim0, num_rays);
+  else
+    probe_tiled<1>(S, tile_rows, origin, direction, t0, prim0, num_rays);
 }
 
 namespace {

@@ -21,6 +21,11 @@ oracle): radiance, rng, live bounces and every residual word of the
 recording instance, over spp 1-8 and bounces 1-6, with sky lanes, paths
 that use their whole bounce budget and paths whose throughput falls to
 near zero.
+
+The probe kernel's fold (`csrc/probe.cuh`: R rays per group over the
+sphere rows in tiles, then the planes, boxes and triangles) runs here with
+tiles of 7 rows, so that one table spans many tiles, and is held bit for
+bit against `primary_hit`.
 """
 
 import ctypes
@@ -44,6 +49,7 @@ from haskell_path_tracer_torch.ops.intersect import INFINITE
 from haskell_path_tracer_torch.ops.rng import gen_seeds
 from haskell_path_tracer_torch.render.nee import _present_kinds
 
+from fold_cases import edge_rays
 from test_pallas_nee import assert_lane_parity
 
 torch.set_num_threads(2)
@@ -69,6 +75,8 @@ def lib(tmp_path_factory):
     lib.hpt_nee_host.restype = None
     lib.hpt_probe_host.argtypes = [vp, i, i, i, i, vp, vp, vp, vp, i]
     lib.hpt_probe_host.restype = None
+    lib.hpt_probe_tiled_host.argtypes = [i, i, vp, i, i, i, i, vp, vp, vp, vp, i]
+    lib.hpt_probe_tiled_host.restype = None
     lib.hpt_nee_loop_host.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp, vp, vp, vp, vp, vp, vp,
                                       i, i, i, i, i]
     lib.hpt_nee_loop_host.restype = ctypes.c_long
@@ -143,6 +151,71 @@ def test_probe_and_presort(lib, name):
     presorted = _host_nee(lib, tables, rays, rng, 3, 2, kinds, primary=(t0, prim0), order=order)
     for a, b in zip(raster, presorted):
         assert torch.equal(a, b)
+
+
+def _tie_table():
+    """Unit spheres at (k, -2, 0), k = -3..3, then their copies, then the
+    plane y = -1 twice; rays straight down from (k, 0, 0), which meet a
+    sphere, its copy and both planes at t = 1 exactly, and 200 rays aimed
+    near the spheres (`fold_cases.py`): 207 in all."""
+    ks = np.arange(-3, 4, dtype=np.float32)
+    centers = np.stack([ks, np.full(7, -2.0, np.float32), np.zeros(7, np.float32)], -1)
+    rows = np.concatenate([centers, np.ones((7, 1), np.float32)], -1)
+    plane = np.array([0, -1, 0, 0, 1, 0, 0, 0], np.float32)
+    fold = np.concatenate([rows.reshape(-1), rows.reshape(-1), plane, plane])
+    o, d = edge_rays(torch.as_tensor(np.concatenate([centers, centers])), torch.ones(14), 200, 3)[:2]
+    down_o = torch.as_tensor(np.stack([ks, np.zeros(7, np.float32), np.zeros(7, np.float32)], -1))
+    down_d = torch.tensor([0.0, -1.0, 0.0]).expand(7, 3)
+    return torch.as_tensor(fold), (14, 2, 0, 0), torch.cat([down_o, o]), torch.cat([down_d, d])
+
+
+def _probe_case(name):
+    """(fold table, counts, origins [n, 3], directions [n, 3])."""
+    if name == "ties":
+        return _tie_table()
+    if name == "inside":  # the camera at the centre of the Cornell scene's sphere 0
+        scene = S.cornell_scene("cpu")
+        rays = primary_rays(Camera.create(scene.spheres.pos[0].tolist(), [0.3, 0.2, 0.0], 90.0, "cpu"),
+                            W, H)
+    elif name == "ragged303":  # 303 spheres: no multiple of the tile or of R
+        scene = S.big_scene("cpu", 303)
+        rays = primary_rays(Camera.create(*SCENES["big300"][1], 90.0, "cpu"), W, H)
+    else:
+        scene, rays, _ = _case("big300" if name == "odd" else name)
+    tables = NE.nee_scene_tables(scene)
+    n = H * W - 1 if name == "odd" else H * W
+    return (tables.fold, tables.counts, rays.origin.reshape(-1, 3)[:n].contiguous(),
+            rays.direction.reshape(-1, 3)[:n].contiguous())
+
+
+PROBE_TILE_ROWS = 7
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("name", ["cornell", "box_tri", "big300", "ragged303", "ties", "inside", "odd"])
+def test_tiled_probe_matches_primary_hit(lib, name, R):
+    """The probe kernel's fold, R rays per group over the sphere rows in
+    tiles of 7, then the other kinds, against `primary_hit`, bit for bit:
+    exact ties between spheres and between a sphere and a plane, a camera
+    inside a sphere, a table that is no multiple of the tile or of R, and
+    an odd ray count."""
+    fold, counts, o, d = _probe_case(name)
+    n = o.shape[0]
+    got = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    want = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    lib.hpt_probe_tiled_host(R, PROBE_TILE_ROWS, _p(fold), *counts, _p(o), _p(d), _p(got[0]),
+                             _p(got[1]), n)
+    lib.hpt_probe_host(_p(fold), *counts, _p(o), _p(d), _p(want[0]), _p(want[1]), n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    hit = want[0] < INFINITE
+    assert hit.any() and (counts[0] > PROBE_TILE_ROWS or name == "box_tri")
+    if name == "ties":
+        # Each downward ray: sphere k at t = 1, tied by its copy and the planes.
+        assert torch.equal(want[0][:7], torch.ones(7)) and torch.equal(want[1][:7], torch.arange(7, dtype=torch.int32))
+    if name == "inside":
+        assert hit.all() and (want[1] != 0).all()
+    if name == "odd":
+        assert n % 2 == 1
 
 
 def _dimmed_big(device):

@@ -8,6 +8,8 @@ Tolerance against the JAX package: `assert_lane_parity`
 (bit-identical images), as is accumulation over samples.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -120,6 +122,19 @@ def test_plain_probe_and_presort_are_exact():
         assert torch.equal(a, b)
     # Telemetry counts the live bounces: a sky lane has none.
     assert (raster[2][t0 >= tint.INFINITE] == 0).all() and raster[2].max() <= 2 * 3
+
+
+def test_probe_refuses_unaligned_table():
+    """The probe kernel copies sphere rows 16 bytes at a time: its launcher
+    refuses a fold table that does not start on a 16-byte boundary, before
+    it builds or launches anything."""
+    scene, cam = _scene_cam("big200")
+    tables = NE.nee_scene_tables(scene)
+    shifted = torch.cat([tables.fold.new_zeros(1), tables.fold])[1:]
+    assert shifted.data_ptr() % 16 and torch.equal(shifted, tables.fold)
+    with pytest.raises(ValueError, match="16-byte"):
+        NE.launch_probe(dataclasses.replace(tables, fold=shifted), primary_rays(cam, W, H))
+    assert NE.LAUNCHES["primary_probe"] == 0
 
 
 @pytest.mark.parametrize("name", ["cornell8", "tri", "box_tri", "zero_light"])
