@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's six CUDA libraries from ``haskell_path_tracer_torch/csrc``
-(one nvcc each, started together) and runs twenty-six phases, each
+(one nvcc each, started together) and runs twenty-eight phases, each
 printing one line; any failure raises and the script exits non-zero
 without printing a result:
 
@@ -194,7 +194,35 @@ without printing a result:
      7's 512x512 / 1 / 4 and 1920x1088 / 8 / 4, spp nearest and spp x
      bounces dual folds per step, and the non-split wavefront `Renderer.step` on that scene at
      800x600 / 15 / 1, a nearest fold per bounce, with the launches counted
-     from 0 and the SGD steps' peak device memory.
+     from 0 and the SGD steps' peak device memory;
+ 27. the stateless sampler (`sampler="threefry"`): `ops/threefry.py`'s
+     `prng_key`, `fold_in`, `bits`, `uniform`, `split` and the derived
+     SFC32 states on the card against the JAX package's words
+     (tests/data/torch_port_stateless_golden.npz), bit for bit; the
+     stateless batch bit-equal in radiance to `render_batch_physical` fed
+     its derived states, the accumulator's rng untouched, at 800x600 / 15
+     bounces / 2 spp on the reference scene (the NEE kernel) and presorted
+     at 1920x1088 / 16 spp / 4 bounces on config 4's scene (the probe and
+     the NEE kernel); replayed bit for bit from (seed word, iterations),
+     the next batch another stream; against the plain stateless batch
+     under lane parity at 800x600; the CLI with `--variant physical
+     --sampler threefry` at 800x600 / 15 / 64 spp, counted from 0 (one NEE
+     launch per step), finite, lit and of the SFC32 CLI's mean within 6%;
+ 28. row-sharded execution (`parallel/`): (a) a world of one NCCL rank:
+     `render_sharded` for the four algorithms at 800x600 / 15 / 1
+     bit-equal to `Renderer.step`; the sharded gradient and SGD step
+     against `loss_and_grad` and the same update on one device at config
+     5's 3840x2160 / 1 / 4 (parity, the CUDA kernels) and config 7's
+     512x512 / 1 / 4 (physical with the emitter tuple, the NEE kernels):
+     loss rtol 1e-5, each gradient field and each updated field within the
+     route's normalised bound; (b) two gloo ranks on the one card (NCCL
+     refuses two ranks on one device), started after the build: the same
+     renders on a 2x1 mesh, gathered, bit-equal to the world of one, the
+     parity step at 3840x2160 / 1 / 4 within the same bounds, and
+     `render_radiance_sharded` on a 1x2 mesh equal to the mean of the two
+     streams rendered on one device within 1e-6 relative; ms per sharded
+     step at world 1 beside the unsharded step, and at world 2, with the
+     card's name and power limit; every launch counted from 0.
 
 Lane tolerance of the forward (tests/test_pallas.py): >= 99.5% of lanes
 with equal rng words, >= 99% of color values isclose at rtol = atol =
@@ -216,7 +244,7 @@ cotangents per lane, off on at most 0.5% of lanes.  The dual-query route:
 rtol 5e-4, atol 5e-6 (tests/test_grad.py).
 
 The line before the last is a JSON object of the kernels with their
-launches on the main paths (phases 5, 9, 14, 19, 23, 18's dual-query
+launches on the main paths (phases 5, 9, 14, 19, 23, 27, 28, 18's dual-query
 route and 26's fold routes), their times, their plain versions' and their bounds at each path's
 shape (the forward and the NEE kernel at 800x600 / 15 bounces / 1 spp, the
 recording forward and both backward kernels at 512x512 / 64 spp / 8
@@ -236,6 +264,7 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -276,7 +305,12 @@ from haskell_path_tracer_torch.ops.intersect import (  # noqa: E402
 from haskell_path_tracer_torch.models import scenes as SC  # noqa: E402
 from haskell_path_tracer_torch.models.io import save_scene  # noqa: E402
 from haskell_path_tracer_torch.render.nee import _present_kinds  # noqa: E402
+from haskell_path_tracer_torch.ops import threefry as TF  # noqa: E402
 from haskell_path_tracer_torch.ops.rng import gen_seeds, gen_vec  # noqa: E402
+from haskell_path_tracer_torch.models.objects import Accumulator  # noqa: E402
+from haskell_path_tracer_torch.parallel import mesh as PM  # noqa: E402
+from haskell_path_tracer_torch.parallel import multihost as PMH  # noqa: E402
+from haskell_path_tracer_torch.parallel import shard as PS  # noqa: E402
 from haskell_path_tracer_torch.render.renderer import Renderer  # noqa: E402
 from haskell_path_tracer_torch.utils.checkpoint import load_accumulator  # noqa: E402
 from haskell_path_tracer_torch.utils.config import RenderConfig  # noqa: E402
@@ -1755,6 +1789,14 @@ def sgd_rates(params, grads) -> dict:
             if f not in GEOMETRY_FIELDS and g.numel() and g.abs().max() > 0}
 
 
+def sgd_lr(params, grads) -> float:
+    """One SGD step size for every field, set from the first gradient so
+    that each field with a gradient moves by at least 0.5% of its scale:
+    p - lr * g then keeps its step far above float32 rounding."""
+    return max(5e-3 * (p.abs().max().item() + 1e-3) / g.abs().max().item()
+               for p, g in zip(params, grads) if g.numel() and g.abs().max() > 0)
+
+
 def sgd_update(params, grads, rates):
     return G.SceneParams(*(p - rates.get(f, 0.0) * g
                            for f, p, g in zip(G.SceneParams._fields, params, grads)))
@@ -2555,6 +2597,434 @@ def split_times(dev, smi) -> tuple:
     return out, entries
 
 
+# The stateless sampler (phase 27) and row-sharded execution (phase 28).
+STATELESS_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_stateless_golden.npz")
+# (label, width, height, spp, bounces): the serving shape at 2 spp, and
+# config 4's scene and shape at 16 spp, past the presort gate.
+STATELESS_CASES = (("reference", 800, 600, 2, 15), ("config4", 1920, 1088, 16, 4))
+# The threefry CLI's image mean against the SFC32 CLI's (phase 14): two
+# 64-spp estimates of one expectation (the split check's 6%).
+STATELESS_MEAN_RTOL = 0.06
+# The threefry CLI's width, height, bounces and spp.
+STATELESS_CLI = (800, 600, 15, 64)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, by the kernels line's names."""
+    return {**parity_launches(),
+            "nee_megakernel": NE.LAUNCHES["nee_megakernel"] - NE.RECORD_LAUNCHES,
+            "nee_megakernel_record": NE.RECORD_LAUNCHES,
+            "primary_probe": NE.LAUNCHES["primary_probe"],
+            "nee_megakernel_vjp": NV.LAUNCHES - NV.RESIDUAL_LAUNCHES,
+            "nee_megakernel_vjp_residual": NV.RESIDUAL_LAUNCHES,
+            **SF.LAUNCHES, **SP.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    reset_parity_launches()
+    NE.LAUNCHES.update(nee_megakernel=0, primary_probe=0)
+    NE.RECORD_LAUNCHES = NV.LAUNCHES = NV.RESIDUAL_LAUNCHES = 0
+    SF.LAUNCHES.update(nearest_fold=0, dual_fold=0)
+    SP.LAUNCHES.update(split_kernel=0)
+
+
+def counted(fn, total: dict):
+    """fn(), with every launch count set to 0 just before it and the
+    launches it made added into `total` just after."""
+    reset_launch_counts()
+    out = fn()
+    for k, v in launch_counts().items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+def bits_of(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().view(np.uint32)
+
+
+def stateless_golden(dev) -> dict:
+    """The threefry words and derived states on the card against the JAX
+    package's, bit for bit."""
+    with np.load(STATELESS_GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    key = TF.prng_key(1234, dev)
+    checked = 0
+    for name, want in golden.items():
+        kind, _, arg = name.partition("__")
+        if kind == "key":
+            word = int(np.array(int(arg), np.uint32).view(np.int32))
+            got = [TF.prng_key(word, dev),
+                   TF.prng_key(torch.tensor(word, dtype=torch.int32, device=dev))]
+        elif kind == "fold_in":
+            got = [TF.fold_in(key, int(arg))]
+        elif kind in ("bits", "uniform"):
+            got = [getattr(TF, kind)(key, want.shape)]
+        elif kind == "split":
+            got = [TF.split(key, int(arg))]
+        elif kind == "states":
+            word, iterations, h, w = golden[f"states_args__{arg}"].tolist()
+            rng = torch.zeros((h, w, 4), dtype=torch.int32, device=dev)
+            rng[0, 0, 0] = int(np.array(word, np.uint32).view(np.int32))
+            got = [RN.stateless_states(Accumulator(color=torch.zeros(h, w, 3, device=dev), rng=rng,
+                                                   iterations=iterations))]
+        else:
+            continue
+        for g in got:
+            if g.device.type != dev.type or not np.array_equal(bits_of(g), want.view(np.uint32)):
+                raise AssertionError(f"stateless golden {name}: the card's words differ")
+            checked += 1
+    return {"arrays_checked": checked}
+
+
+def stateless_path(dev, smi, sfc32_cli_mean: float) -> dict:
+    """Phase 27.  Launches of the stateless entry points (batches and the
+    CLI) are counted from 0; the comparisons' are not."""
+    out = {"golden": stateless_golden(dev)}
+    launches = {}
+    for label, w, h, spp, bounces in STATELESS_CASES:
+        if label == "reference":
+            scene, cam = world.main_scene(dev), world.initial_camera(dev)
+        else:
+            scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+        li, kinds = NE.scene_light_indices(scene), _present_kinds(scene)
+        acc = Accumulator(color=torch.zeros((h, w, 3), device=dev), rng=gen_seeds((h, w), 7, dev),
+                          iterations=5)
+
+        def stateless(a, kernel="auto"):
+            return RN.render_batch_physical_stateless(scene, cam, a, spp, bounces, kinds=kinds,
+                                                      light_idx=li, kernel=kernel)
+
+        case = {}
+        got = counted(lambda: stateless(acc), case)
+        states = RN.stateless_states(acc)
+        fed = Accumulator(color=acc.color, rng=states, iterations=acc.iterations)
+        want = RN.render_batch_physical(scene, cam, fed, spp, bounces, kinds=kinds, light_idx=li)
+        if not (torch.equal(got.color, want.color) and torch.equal(got.rng, acc.rng)
+                and got.iterations == want.iterations == acc.iterations + spp):
+            raise AssertionError(f"stateless {label}: not the batch on its derived states")
+        replay = counted(lambda: stateless(acc), case)
+        after = counted(lambda: stateless(Accumulator(color=acc.color, rng=acc.rng,
+                                                      iterations=acc.iterations + spp)), case)
+        if not torch.equal(replay.color, got.color) or torch.equal(after.color, got.color):
+            raise AssertionError(f"stateless {label}: no bit-exact replay, or no fresh stream")
+        expect = {"nee_megakernel": 3, "primary_probe": 3 if label == "config4" else 0}
+        if {k: case.get(k, 0) for k in expect} != expect:
+            raise AssertionError(f"stateless {label}: launches {case}, not {expect}")
+        rec = {"launches": case, "mean": (got.color / spp).mean().item(),
+               "lit_share": ((got.color.sum(-1) > 1e-3).double().mean().item())}
+        reps = 20 if label == "reference" else 3
+        rec["times"] = {"states": cuda_times(lambda: RN.stateless_states(acc), reps),
+                        "stateless_batch": cuda_times(lambda: stateless(acc), reps),
+                        "sfc32_batch": cuda_times(lambda: RN.render_batch_physical(
+                            scene, cam, acc, spp, bounces, kinds=kinds, light_idx=li), reps)}
+        if label == "reference":
+            plain = stateless(acc, kernel="torch")
+            plain_fed = RN.render_batch_physical(scene, cam, fed, spp, bounces, kinds=kinds,
+                                                 light_idx=li, kernel="torch")
+            if not torch.equal(plain.color, plain_fed.color):
+                raise AssertionError("stateless: the plain batch is not the plain loop on its states")
+            rec["vs_plain"] = lane_parity("stateless vs plain", (got.color, want.rng),
+                                          (plain_fed.color, plain_fed.rng))
+        out[f"{label}_{w}x{h}_spp{spp}_b{bounces}"] = rec
+        for k, v in case.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        png, ckpt = os.path.join(tmp, "threefry.png"), os.path.join(tmp, "threefry.npz")
+        cli = {}
+        t0 = time.perf_counter()
+        w, h, bounces, spp = STATELESS_CLI
+        rc = counted(lambda: cli_main([
+            "--variant", "physical", "--sampler", "threefry", "--device", dev.type, "--width",
+            str(w), "--height", str(h), "--bounces", str(bounces), "--spp", str(spp), "--seed", "0",
+            "--quiet", "--checkpoint", ckpt, "-o", png]), cli)
+        wall = time.perf_counter() - t0
+        acc, _ = load_accumulator(ckpt, "cpu")
+    img = acc.image.numpy()
+    mean, lit = float(img.mean()), float((img.sum(-1) > 1e-3).mean())
+    out[f"cli_{w}x{h}_b{bounces}_spp{spp}"] = {"rc": rc, "iterations": acc.iterations, "wall_s": wall,
+                                    "mean": mean, "sfc32_mean": sfc32_cli_mean, "lit_share": lit,
+                                    "launches": cli}
+    if rc != 0 or acc.iterations != spp or not np.isfinite(img).all() or lit == 0.0:
+        raise AssertionError(f"threefry CLI: rc {rc}, {acc.iterations} samples, or a black image")
+    if cli.get("nee_megakernel") != spp or any(v for k, v in cli.items() if k != "nee_megakernel"):
+        raise AssertionError(f"threefry CLI launches {cli}, not one NEE launch per step")
+    if abs(mean - sfc32_cli_mean) > STATELESS_MEAN_RTOL * abs(sfc32_cli_mean):
+        raise AssertionError(f"threefry CLI mean {mean} against the SFC32 CLI's {sfc32_cli_mean}")
+    for k, v in cli.items():
+        launches[k] = launches.get(k, 0) + v
+    scene, cam = world.main_scene(dev), world.initial_camera(dev)
+    out["renderer_step_800x600_b15_spp1"] = {"nvidia_smi": smi, **{
+        sampler: cuda_times(lambda r=Renderer(RenderConfig(algorithm="physical", sampler=sampler,
+                                                         device=dev.type)),
+                            a=RI.make_accumulator(800, 600, 0, dev): r.step(scene, cam, a, 1), 20)
+        for sampler in ("threefry", "sfc32")}}
+    out["launches"] = launches
+    return out
+
+
+# Phase 28's renders: (algorithm, Renderer options, accumulator seed), at
+# 800x600 / 15 bounces / 1 spp; the split on config 3's glass scene.
+SHARDED_RENDERS = (("inline", {}, 31), ("physical", {}, 32), ("wavefront", {}, 33),
+                   ("split", {"split": True, "queue_factor": 2.0}, 34))
+SHARDED_W, SHARDED_H, SHARDED_BOUNCES = 800, 600, 15
+# The 1x2 radiance: 800x600 / 4 bounces / 1 spp per sample, streams 40, 41.
+RADIANCE_SEEDS = (40, 41)
+# The training cells' widths and heights: config 5's and config 7's.
+PARITY_TRAIN, PHYSICAL_TRAIN = (3840, 2160), (512, 512)
+PARITY_CELL = "parity_{}x{}_spp1_b4".format(*PARITY_TRAIN)
+# The device of a gloo rank's process.
+RANK_DEVICE = "cuda"
+
+
+def sharded_scene(algo, dev):
+    if algo == "split":
+        return SC.suite_glass_scene(dev), world.initial_camera(dev)
+    return world.main_scene(dev), world.initial_camera(dev)
+
+
+def sharded_renders(mesh, dev, launches) -> dict:
+    """render_sharded for the four algorithms, gathered, counted."""
+    out = {}
+    for algo, opts, seed in SHARDED_RENDERS:
+        scene, cam = sharded_scene(algo, dev)
+        acc = RI.make_accumulator(SHARDED_W, SHARDED_H, seed, dev)
+        block = counted(lambda: PS.render_sharded(
+            scene, cam, PS.place_accumulator(acc, mesh), 1, mesh, SHARDED_BOUNCES, algorithm=algo,
+            queue_factor=2.0), launches)
+        out[algo] = PS.gather_accumulator(block, mesh)
+    return out
+
+
+def sharded_train_inputs(dev) -> dict:
+    """The two training cells from seeds: config 5's parity step on the
+    reference scene (target: emitters x1.5) and config 7's physical step on
+    config 4's scene (target: emitters x0.5), rng seed 1, 1 spp, 4 bounces."""
+    cases = {}
+    with torch.no_grad():
+        scene, cam = world.main_scene(dev), world.initial_camera(dev)
+        p = G.scene_to_params(scene)
+        brighter = G.params_to_scene(p._replace(sphere_illum=p.sphere_illum * 1.5), scene)
+        w, h = PARITY_TRAIN
+        rng = gen_seeds((h, w), 1, dev)
+        cases[PARITY_CELL] = dict(
+            scene=scene, cam=cam, rng=rng, kw={}, tol=GRAD_TOL,
+            target=G.render_radiance(brighter, cam, rng, w, h, 4, 1))
+        scene, cam = SC.big_scene(dev, 1000), Camera.create(*CAM4, 90.0, dev)
+        p = G.scene_to_params(scene)
+        dimmer = G.params_to_scene(p._replace(sphere_illum=p.sphere_illum * 0.5), scene)
+        kw = dict(estimator="physical", light_idx=NE.scene_light_indices(scene),
+                  kinds=_present_kinds(scene))
+        w, h = PHYSICAL_TRAIN
+        rng = gen_seeds((h, w), 1, dev)
+        cases["physical_{}x{}_spp1_b4".format(w, h)] = dict(
+            scene=scene, cam=cam, rng=rng, kw=kw, tol=NEE_GRAD_TOL,
+            target=G.render_radiance(dimmer, cam, rng, w, h, 4, 1, **kw))
+    return cases
+
+
+def sharded_step(case, mesh, lr, launches):
+    """The sharded gradient and SGD step of a training cell on this rank's
+    rows: ((loss, grads), (new params, loss))."""
+    rows = slice(*PMH.local_row_block(case["rng"].shape[0], mesh.n_tile))
+    args = (G.scene_to_params(case["scene"]), case["scene"], case["cam"],
+            case["target"][rows].contiguous(), case["rng"][rows].contiguous(), mesh, 4)
+    grad = counted(lambda: PS.loss_and_grad_sharded(*args, **case["kw"]), launches)
+    step = counted(lambda: PS.train_step_sharded(*args, lr=lr, **case["kw"]), launches)
+    return grad, step
+
+
+def held_step(label, case, lr, want, got) -> dict:
+    """The sharded (loss, grads) and (new params, loss) against one device's
+    loss and SGD step p - lr * g: loss rtol 1e-5, each gradient field and
+    each field's step within the route's normalised bound."""
+    (loss1, g1), (loss_s, g_s), (new_s, loss_step) = want, got[0], got[1]
+    params = G.scene_to_params(case["scene"])
+    for name, loss in (("grad", loss_s), ("step", loss_step)):
+        if abs(loss.item() - loss1.item()) > LOSS_RTOL * abs(loss1.item()):
+            raise AssertionError(f"{label} {name}: loss {loss.item()} against {loss1.item()}")
+    grads = field_errors(f"{label} gradient", g_s._asdict(), g1._asdict(), tol=case["tol"])
+    fields = G.SceneParams._fields
+    steps = field_errors(f"{label} update", {f: n - p for f, n, p in zip(fields, new_s, params)},
+                         {f: -lr * g for f, g in zip(fields, g1)}, tol=case["tol"])
+    return {"loss": loss_s.item(), "loss_single": loss1.item(), "gradient": grads,
+            "update": steps}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_world_one(dev, smi) -> tuple:
+    """Phase 28 (a), a world of one NCCL rank.  Returns the record, the
+    renders, the training cells with their step sizes and one-device results,
+    and the launches of the sharded calls."""
+    launches = {}
+    if not PMH.initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, device="cuda"):
+        raise AssertionError("initialize_distributed did not start the group")
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("the world of one is not on NCCL")
+        mesh = PM.make_mesh(device=dev)
+        renders = sharded_renders(mesh, dev, launches)
+        rec, times = {"backend": "nccl"}, {}
+        for algo, opts, seed in SHARDED_RENDERS:
+            scene, cam = sharded_scene(algo, dev)
+            renderer = Renderer(RenderConfig(
+                width=SHARDED_W, height=SHARDED_H, bounces=SHARDED_BOUNCES, device=dev.type,
+                algorithm="wavefront" if algo == "split" else algo, **opts))
+            acc = RI.make_accumulator(SHARDED_W, SHARDED_H, seed, dev)
+            want = renderer.step(scene, cam, acc, 1)
+            if not (torch.equal(renders[algo].color, want.color)
+                    and torch.equal(renders[algo].rng, want.rng)):
+                raise AssertionError(f"world 1 {algo}: render_sharded differs from Renderer.step")
+            block = PS.place_accumulator(acc, mesh)
+            times[algo] = {
+                "renderer_step": cuda_times(lambda: renderer.step(scene, cam, acc, 1), 20),
+                "render_sharded": cuda_times(lambda: PS.render_sharded(
+                    scene, cam, block, 1, mesh, SHARDED_BOUNCES, algorithm=algo,
+                    queue_factor=2.0), 20)}
+        cases = sharded_train_inputs(dev)
+        single = {}
+        for label, case in cases.items():
+            args = (G.scene_to_params(case["scene"]), case["scene"], case["cam"], case["target"],
+                    case["rng"])
+            loss1, g1 = G.loss_and_grad(*args, num_bounces=4, spp=1, **case["kw"])
+            lr = sgd_lr(args[0], g1)
+            single[label] = (lr, (loss1, g1))
+            rec[label] = dict(held_step(label, case, lr, (loss1, g1),
+                                        sharded_step(case, mesh, lr, launches)), lr=lr)
+
+            def one_device(a=args, lr=lr, kw=case["kw"]):
+                loss, g = G.loss_and_grad(*a, num_bounces=4, spp=1, **kw)
+                return G.SceneParams(*(p - lr * d for p, d in zip(a[0], g))), loss
+
+            times[label] = {
+                "loss_and_grad_sgd": cuda_times(one_device, 5),
+                "train_step_sharded": cuda_times(lambda a=args, lr=lr, kw=case["kw"]:
+                                                 PS.train_step_sharded(*a, mesh, 4, lr=lr, **kw), 5)}
+        rec["times_world1"] = {"nvidia_smi": smi, **times}
+    finally:
+        torch.distributed.destroy_process_group()
+    return rec, renders, cases, single, launches
+
+
+def sharded_rank_main(rank: int, world_size: int, store: str) -> int:
+    """One of phase 28's gloo ranks (`python3 chip_smoke.py --sharded-rank
+    RANK WORLD DIR`): the renders on a 2x1 mesh, the parity step, the 1x2
+    radiance and their times, and a `replicate_tree` broadcast, written to
+    DIR/rank_RANK.pt."""
+    PMH.initialize_distributed(f"file://{store}/store", world_size, rank, device=RANK_DEVICE,
+                               backend="gloo")
+    dev = torch.device(RANK_DEVICE, 0) if RANK_DEVICE == "cuda" else torch.device(RANK_DEVICE)
+    launches = {}
+    mesh = PM.make_mesh(n_tile=world_size, device=dev)
+    out = {"renders": {k: (v.color.cpu(), v.rng.cpu()) for k, v in
+                       sharded_renders(mesh, dev, launches).items()}}
+    with open(os.path.join(store, "lr.json")) as f:
+        lr = json.load(f)
+    case = sharded_train_inputs(dev)[PARITY_CELL]
+    (loss, g), (new, step_loss) = sharded_step(case, mesh, lr, launches)
+    out["parity"] = {"loss": loss.cpu(), "grads": {k: v.cpu() for k, v in g._asdict().items()},
+                     "new": {k: v.cpu() for k, v in new._asdict().items()},
+                     "step_loss": step_loss.cpu()}
+    rows = slice(*PMH.local_row_block(PARITY_TRAIN[1], mesh.n_tile))
+    args = (G.scene_to_params(case["scene"]), case["scene"], case["cam"],
+            case["target"][rows].contiguous(), case["rng"][rows].contiguous(), mesh, 4)
+    scene, cam = world.main_scene(dev), world.initial_camera(dev)
+    acc = PS.place_accumulator(RI.make_accumulator(SHARDED_W, SHARDED_H, 31, dev), mesh)
+    out["times"] = {
+        "inline_render_sharded": cuda_times(lambda: PS.render_sharded(
+            scene, cam, acc, 1, mesh, SHARDED_BOUNCES), 20),
+        "parity_train_step_sharded": cuda_times(lambda: PS.train_step_sharded(*args, lr=lr), 5)}
+    pair = PM.make_mesh(n_tile=1, n_sample=world_size, device=dev)
+    rng = gen_seeds((SHARDED_H, SHARDED_W), RADIANCE_SEEDS[pair.sample], dev)
+    out["radiance"] = counted(lambda: PS.render_radiance_sharded(
+        scene, cam, rng, pair, SHARDED_W, SHARDED_H, 4), launches).cpu()
+    # A broadcast of CUDA tensors over gloo: rank 0's scene on every rank.
+    mine = G.params_to_scene(G.SceneParams(*(p + rank for p in G.scene_to_params(scene))), scene)
+    out["replicated"] = {k: v.cpu() for k, v in
+                         G.scene_to_params(PMH.replicate_tree(mine, mesh))._asdict().items()}
+    out["launches"] = launches
+    torch.save(out, os.path.join(store, f"rank_{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def sharded_world_two(dev, smi, renders, cases, single) -> dict:
+    """Phase 28 (b): two gloo ranks on the one card, as processes of this
+    script, their results held against the world of one and one device."""
+    torch.cuda.empty_cache()
+    rec = {"backend": "gloo"}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as store:
+        with open(os.path.join(store, "lr.json"), "w") as f:
+            json.dump(single[PARITY_CELL][0], f)
+        env = dict(os.environ, LOCAL_RANK="0")
+        logs = [open(os.path.join(store, f"rank_{r}.log"), "w+") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                                   str(r), "2", store], env=env, stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            t0 = time.perf_counter()
+            for r, p in enumerate(procs):
+                if p.wait(timeout=400) != 0:
+                    logs[r].seek(0)
+                    raise AssertionError(f"gloo rank {r} failed:\n{logs[r].read()[-6000:]}")
+            rec["wall_s"] = time.perf_counter() - t0
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        ranks = [torch.load(os.path.join(store, f"rank_{r}.pt")) for r in range(2)]
+    for r, out in enumerate(ranks):
+        for algo, (color, rng) in out["renders"].items():
+            if not (torch.equal(color, renders[algo].color.cpu())
+                    and torch.equal(rng, renders[algo].rng.cpu())):
+                raise AssertionError(f"world 2 rank {r} {algo}: not the world of one's image")
+        p = out["parity"]
+        label = PARITY_CELL
+        lr, want = single[label]
+        to_dev = lambda d: G.SceneParams(**{k: v.to(dev) for k, v in d.items()})  # noqa: E731
+        rec[f"rank{r}_{label}"] = held_step(
+            label, cases[label], lr, want,
+            ((p["loss"].to(dev), to_dev(p["grads"])), (to_dev(p["new"]), p["step_loss"].to(dev))))
+        rec[f"rank{r}_times"] = {"nvidia_smi": smi, **out["times"]}
+    scene, cam = world.main_scene(dev), world.initial_camera(dev)
+    with torch.no_grad():
+        pair = [G.render_radiance(scene, cam, gen_seeds((SHARDED_H, SHARDED_W), s, dev),
+                                  SHARDED_W, SHARDED_H, 4, 1) for s in RADIANCE_SEEDS]
+    mean = ((pair[0] + pair[1]) / 2).cpu()
+    for r, out in enumerate(ranks):
+        err = ((out["radiance"] - mean).abs().max() / mean.abs().max()).item()
+        if err > 1e-6:
+            raise AssertionError(f"world 2 rank {r}: the sample mean is {err} off")
+        rec[f"rank{r}_radiance_rel_err"] = err
+    want = G.scene_to_params(scene)._asdict()
+    if not all(torch.equal(out["replicated"][k], v.cpu()) for out in ranks for k, v in want.items()):
+        raise AssertionError("world 2: replicate_tree did not give rank 0's scene on every rank")
+    rec["launches"] = {k: sum(o["launches"].get(k, 0) for o in ranks)
+                       for k in set().union(*(o["launches"] for o in ranks))}
+    return rec
+
+
+def sharded_path(dev, smi) -> dict:
+    """Phase 28: the world of one on NCCL, then two gloo ranks."""
+    rec, renders, cases, single, launches = sharded_world_one(dev, smi)
+    two = sharded_world_two(dev, smi, renders, cases, single)
+    for k, v in two.pop("launches").items():
+        launches[k] = launches.get(k, 0) + v
+    need = ("megakernel", "megakernel_vjp", "nee_megakernel", "nee_megakernel_record",
+            "nee_megakernel_vjp_residual", "split_kernel")
+    if any(not launches.get(k) for k in need):
+        raise AssertionError(f"the sharded paths left a kernel unlaunched: {launches}")
+    return {"world1": rec, "world2": two, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -2782,10 +3252,20 @@ def main() -> int:
     route_launches = {k: sum(r["launches_per_step"][k] for r in route_times.values() if isinstance(r, dict))
                       for k in ("nearest_fold", "dual_fold")}
 
+    # 27: the stateless sampler.
+    stateless = stateless_path(dev, smi, physical["reference_800x600_b15_spp64"]["mean"])
+    phase("stateless", **stateless)
+
+    # 28: row-sharded execution.
+    sharded = sharded_path(dev, smi)
+    phase("sharded", **sharded)
+    slice_launches = {k: stateless["launches"].get(k, 0) + sharded["launches"].get(k, 0)
+                      for k in launch_counts()}
+
     print(smi)
     res = times["resources"]
     main_plain_ms = main_shape["cases"][0]["plain_ms"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "megakernel",
         "route": "cuda",
         "source": "haskell_path_tracer_torch/csrc/megakernel.cu",
@@ -2915,7 +3395,10 @@ def main() -> int:
         "max_abs_err": split_rec["max_abs_err"],
         **split_entries["split_kernel"],
         "library_ms": None,
-    }]}))
+    }]
+    for entry in kernels:
+        entry["launches"] += slice_launches[entry["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))
@@ -2923,4 +3406,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -20,8 +20,14 @@ The wavefront integrator (`render_batch_wavefront`,
 `Renderer(algorithm="wavefront")`) runs the same bounce over a queue of
 lanes; with deterministic dielectric splitting (`render_batch_split_auto`,
 `split=True`) a CUDA device runs it as one launch of the splitting kernel
-in ``csrc/split.cu``.  This package imports neither JAX nor the JAX
-package.
+in ``csrc/split.cu``.  The stateless sampler
+(`render_batch_physical_stateless`, `sampler="threefry"`) derives each
+batch's SFC32 states from threefry keys (``ops/threefry.py``, bit-equal
+with `jax.random`) and runs the same kernels; `parallel/` row-shards the
+renderers and the gradient step over the ranks of a `torch.distributed`
+group; `utils/checkpoint.py` saves and restores accumulators and training
+state in the JAX package's file formats.  This package imports neither JAX
+nor the JAX package.
 """
 
 from .models.objects import (
@@ -63,7 +69,13 @@ from .render.wavefront import (
     render_sample_wavefront,
     render_sample_wavefront_split,
 )
-from .render.nee import render_batch_physical, render_sample_physical, trace_physical
+from .render.nee import (
+    render_batch_physical,
+    render_batch_physical_stateless,
+    render_sample_physical,
+    trace_physical,
+    trace_physical_stateless,
+)
 from .ops.nee import primary_probe, scene_light_indices
 from .ops.nee_vjp import trace_physical_nee_diff
 from .ops.sphere_fold import sphere_dual_query

@@ -93,9 +93,14 @@ def render_radiance(
     estimator: str = "parity",
     light_idx: tuple | None = None,
     kinds=None,
+    row_offset: int = 0,
+    full_height: int | None = None,
 ) -> torch.Tensor:
     """Differentiable expected-radiance image [H, W, 3]: the mean of `spp`
-    samples, each advancing the rng.  `has_dielectric` (None: read the
+    samples, each advancing the rng.  `row_offset` / `full_height` render
+    the row block [row_offset, row_offset + height) of an image of
+    `full_height` rows (`primary_rays`; the row-sharded gradient,
+    `parallel/shard.py`), on every route.  `has_dielectric` (None: read the
     scene's kinds) elides the parity CUDA kernels' glass block; the torch
     backend always runs it.
 
@@ -123,7 +128,7 @@ def render_radiance(
         raise ValueError(f"unknown estimator {estimator!r}")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}, expected one of {BACKENDS}")
-    rays = primary_rays(camera, width, height)
+    rays = primary_rays(camera, width, height, row_offset, full_height)
     if estimator == "physical":
         return _physical_radiance(scene, rays, rng_state, num_bounces, spp, backend, light_idx,
                                   kinds)

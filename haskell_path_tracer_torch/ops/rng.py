@@ -92,6 +92,17 @@ def reseed(rng_state_shape, accumulator, seed: int | None = None):
     )
 
 
+def fresh_keys(shape, seed: int = 0, device=None) -> torch.Tensor:
+    """A grid of threefry keys, one per pixel: int32 [*shape, 2], the key
+    words of `jax.random.split(jax.random.key(seed), prod(shape))` reshaped
+    (the JAX package's `fresh_keys`; `ops/threefry.py`)."""
+    from . import threefry
+
+    shape = tuple(shape)
+    keys = threefry.split(threefry.prng_key(seed, device), int(np.prod(shape)))
+    return keys.reshape(*shape, 2)
+
+
 # numpy twin, on uint32 — bit-exact with the functions above.
 
 

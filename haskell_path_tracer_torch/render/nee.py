@@ -40,6 +40,7 @@ from ..models.objects import (
 from ..ops import brdf as brdf_ops
 from ..ops import nee as nee_ops
 from ..ops import rng as rng_ops
+from ..ops import threefry
 from ..ops.intersect import (
     CHUNKED_THRESHOLD,
     EPSILON,
@@ -549,6 +550,80 @@ def trace_physical(
     return radiance, rng
 
 
+def trace_physical_stateless(
+    scene: Scene,
+    rays: Rays,
+    key: torch.Tensor,
+    num_bounces: int = 8,
+    spp: int = 1,
+    nee: bool = True,
+    kinds=None,
+) -> torch.Tensor:
+    """The physical trace on stateless threefry uniforms: the mean radiance
+    of `spp` samples per ray.
+
+    Sample `i`, bounce `b` draws its six uniforms as `uniform(fold_in(
+    fold_in(key, i), b), (6, ...))` (`ops/threefry.py`, bit-equal with
+    `jax.random`), so any sample replays from (key, index) with no state
+    carried.  The shading is `_trace`'s, the uniforms in the same roles:
+    the BSDF sample (0-2) and the emitter sample (3-5).  Plain tensor code
+    on any device: the reference estimator that the stateless batch
+    (`render_batch_physical_stateless`) is held to in expectation."""
+    if kinds is None:
+        kinds = _present_kinds(scene)
+    n_spheres = scene.spheres.count
+    bsdf_only_lo = n_spheres
+    bsdf_only_hi = n_spheres + scene.planes.count + scene.boxes.count
+    lights = torch.nonzero(_light_fields(scene)[0]).reshape(-1) if nee else None
+    shape = rays.origin.shape[:-1]
+    t0, prim0 = nearest_t_prim(rays.origin, rays.direction, scene)
+
+    total = torch.zeros_like(rays.origin)
+    for i in range(spp):
+        sample_key = threefry.fold_in(key, i)
+        ray_o, ray_d, t, prim = rays.origin, rays.direction, t0, prim0
+        result = torch.zeros_like(ray_o)
+        throughput = torch.ones_like(ray_o)
+        prev_spec = torch.ones(shape, dtype=torch.bool, device=ray_o.device)
+        for b in range(num_bounces):
+            hit = hit_from_t_prim(ray_o, ray_d, t, prim, scene)
+            dead = linalg.near_zero(throughput) | ~hit.hit
+            if nee:
+                is_bsdf_only = (hit.prim >= bsdf_only_lo) & (hit.prim < bsdf_only_hi)
+                take_emit = prev_spec | is_bsdf_only
+            else:
+                take_emit = torch.ones_like(prev_spec)
+            emit = brdf_ops.emittance(hit) * throughput
+            new_result = result + torch.where(take_emit[..., None], emit, 0.0)
+
+            u = threefry.uniform(threefry.fold_in(sample_key, b), (6, *shape))
+            _, direction, tmod, is_spec = _physical_bounce(hit, ray_d, u[0], u[1], u[2],
+                                                            kinds=kinds)
+            if nee:
+                l_dir, inv_pdf, l_idx, t_l, l_emit = sample_light(
+                    scene, hit.point, u[3], u[4], u[5], lights
+                )
+                occ = shadow_occluded(hit.point, l_dir, t_l, l_idx, scene)
+                cos_i = linalg.dot(l_dir, hit.normal)
+                w = ~occ & (t_l < INFINITE) & (hit.brdf_kind == BRDF_MATTE) & (cos_i > 0.0)
+                contrib = (throughput * _div(hit.color, PI) * l_emit
+                           * (cos_i * inv_pdf)[..., None])
+                new_result = new_result + torch.where(w[..., None], contrib, 0.0)
+
+            new_throughput = throughput * tmod
+            t2, prim2 = nearest_t_prim(hit.point, direction, scene, EPSILON)
+            d3 = dead[..., None]
+            ray_o = torch.where(d3, ray_o, hit.point)
+            ray_d = torch.where(d3, ray_d, direction)
+            t = torch.where(dead, t, t2)
+            prim = torch.where(dead, prim, prim2)
+            result = torch.where(d3, result, new_result)
+            throughput = torch.where(d3, 0.0, new_throughput)
+            prev_spec = torch.where(dead, prev_spec, is_spec)
+        total = total + result
+    return _div(total, float(spp))
+
+
 def render_sample_physical(
     scene: Scene,
     camera: Camera,
@@ -629,3 +704,50 @@ def render_batch_physical(
             fused=False if kernel == "torch" else None,
         )
     return acc
+
+
+def stateless_states(acc: Accumulator) -> torch.Tensor:
+    """The per-lane SFC32 states of the accumulator's next stateless batch:
+    threefry words `bits(fold_in(prng_key(seed), iterations), (H, W, 4))`
+    after 12 warm-up rounds, `seed` being the accumulator's first rng word
+    read as uint32.  Computed on the accumulator's device; a pure function
+    of (seed word, iterations)."""
+    height, width = acc.rng.shape[:2]
+    key = threefry.fold_in(threefry.prng_key(acc.rng.reshape(-1)[0]), acc.iterations)
+    states = threefry.bits(key, (height, width, 4))
+    for _ in range(12):
+        _, states = rng_ops.sfc32_next(states)
+    return states
+
+
+def render_batch_physical_stateless(
+    scene: Scene,
+    camera: Camera,
+    acc: Accumulator,
+    spp: int,
+    num_bounces: int = 8,
+    nee: bool = True,
+    row_offset: int = 0,
+    full_height: int | None = None,
+    kinds=None,
+    light_idx=None,
+    kernel: str = "auto",
+    presort: bool | None = None,
+) -> Accumulator:
+    """`spp` physical samples with stateless replay (`RenderConfig.sampler =
+    "threefry"`): the batch's per-lane SFC32 states are derived from the
+    accumulator's seed word and iteration count (`stateless_states`), then
+    `render_batch_physical` runs on them unchanged, with the same `kernel`,
+    `presort`, `kinds` and `light_idx` (the NEE megakernel, and the probe
+    when presorted, on CUDA tensors).  Any batch replays from (seed,
+    iterations) alone and successive batches draw fresh streams; the
+    accumulator's own rng, the SFC32 sampler's state, is returned
+    untouched.  `trace_physical_stateless` is the pure-threefry estimator
+    this path is held to in expectation."""
+    out = render_batch_physical(
+        scene, camera, Accumulator(color=acc.color, rng=stateless_states(acc),
+                                   iterations=acc.iterations),
+        spp, num_bounces, nee=nee, row_offset=row_offset, full_height=full_height,
+        kinds=kinds, light_idx=light_idx, kernel=kernel, presort=presort,
+    )
+    return Accumulator(color=out.color, rng=acc.rng, iterations=out.iterations)

@@ -39,7 +39,9 @@ class Renderer:
     deterministic-splitting one (`render_batch_split_auto`, honouring
     `kernel`: the CUDA kernel on a CUDA device under "auto").
     `algorithm="physical"` renders the physical/NEE estimator
-    (`render/nee.py:render_batch_physical`; `nee` and `kernel` as there).
+    (`render/nee.py:render_batch_physical`; `nee` and `kernel` as there),
+    with `sampler="threefry"` on stateless per-batch streams
+    (`render_batch_physical_stateless`).
     Its BRDF kinds and emitters are read from a scene once, when `step`
     first sees that scene object: a scene changed in place needs a new
     Scene object to be read again."""
@@ -48,15 +50,12 @@ class Renderer:
         self.config = config
         self._physical = config.algorithm == "physical"
         if self._physical:
-            if config.sampler != "sfc32":
-                raise NotImplementedError(
-                    f"sampler {config.sampler!r} (the stateless threefry sampler of "
-                    "render_batch_physical_stateless) is not ported yet: ROADMAP "
-                    "Queue A #8, its stateless item; use 'sfc32'"
-                )
+            if config.sampler not in ("sfc32", "threefry"):
+                raise ValueError(f"unknown sampler {config.sampler!r}")
+            batch = (nee.render_batch_physical_stateless if config.sampler == "threefry"
+                     else nee.render_batch_physical)
             self._step = partial(
-                nee.render_batch_physical, num_bounces=config.bounces, nee=config.nee,
-                kernel=config.kernel,
+                batch, num_bounces=config.bounces, nee=config.nee, kernel=config.kernel,
             )
             # The BRDF kinds and the emitters, read on the host once per
             # scene object (a read from a CUDA device waits for it).

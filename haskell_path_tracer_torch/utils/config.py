@@ -12,8 +12,10 @@ plain tensor loop elsewhere), "torch" (the plain loop) or "cuda" (the
 kernel; raises off the GPU).  The wavefront without splitting has no
 kernel of its own.
 `sampler` is the physical algorithm's RNG: "sfc32", the per-pixel stateful
-generator; "threefry" (the JAX package's stateless sampler) is not ported
-yet and raises.
+generator, or "threefry", the stateless sampler: each batch derives its
+per-lane SFC32 states from threefry keys of (the accumulator's seed word,
+its iteration count), so a batch replays from those two numbers alone
+(`render/nee.py:render_batch_physical_stateless`).
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
     )
     parser.add_argument(
         "--sampler", choices=["sfc32", "threefry"], default=d.sampler,
-        help="physical-mode RNG: stateful SFC32 (threefry is not ported yet)",
+        help="physical-mode RNG: stateful per-pixel SFC32, or threefry (stateless: "
+        "each batch's streams derive from the seed and the iteration count)",
     )
     parser.add_argument(
         "--kernel", choices=["auto", "torch", "cuda"], default=d.kernel,

@@ -85,11 +85,6 @@ def test_renderer_physical_matches_render_batch():
     assert not torch.equal(no_nee.color, acc.color)
 
 
-def test_renderer_threefry_sampler_raises():
-    with pytest.raises(NotImplementedError, match="Queue A #8"):
-        Renderer(RenderConfig(algorithm="physical", sampler="threefry", device="cpu"))
-
-
 def test_cli_physical_writes_png(tmp_path):
     from haskell_path_tracer_torch.app.main import main
     from haskell_path_tracer_torch.utils.checkpoint import load_accumulator

@@ -4,13 +4,19 @@ render, built with the JAX package and carried across as numpy arrays.
 Also writes the golden files that `chip_smoke.py` holds the CUDA kernels
 against on a machine without JAX:
 
-    JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py [nee | nee_grad | split]
+    JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py [nee | nee_grad | split | stateless]
 
 regenerates ``tests/data/torch_port_nee_golden.npz`` (seconds) with `nee`,
 ``tests/data/torch_port_nee_grad_golden.npz`` (seconds) with `nee_grad`,
-``tests/data/torch_port_split_golden.npz`` (seconds) with `split`, and all
-four, ``tests/data/torch_port_golden.npz`` (minutes) too, without an
-argument.  The split file holds, for each splitting case, the JAX
+``tests/data/torch_port_split_golden.npz`` (seconds) with `split`,
+``tests/data/torch_port_stateless_golden.npz`` (a second) with
+`stateless`, and all five, ``tests/data/torch_port_golden.npz`` (minutes)
+too, without an argument.  The stateless file holds `jax.random`'s words
+for the threefry functions the stateless sampler uses (`prng_key` of
+seeds at and above 2^31, `fold_in`, `bits` at odd, even and [H, W, 4]
+shapes, `split`, `uniform`) and the per-lane SFC32 states that
+`render_batch_physical_stateless` derives from (seed word, iterations),
+with those two numbers and the shape.  The split file holds, for each splitting case, the JAX
 package's inputs (scene arrays, primary rays, initial rng) and the outputs
 of its Pallas splitting kernel, `trace_split_pallas` in interpret mode, at
 128x8.  The NEE gradient file holds, for cornell8, tri and glassy at
@@ -481,6 +487,54 @@ def split_golden_arrays(traces):
     return out
 
 
+STATELESS_GOLDEN_PATH = os.path.join(
+    os.path.dirname(__file__), "data", "torch_port_stateless_golden.npz"
+)
+# Seeds of prng_key as uint32 words: both ends of the int32 range and words
+# at and above 2^31, which the port holds as negative int32.
+STATELESS_SEEDS = (0, 1, 2**31 - 1, 2**31, 0xDEADBEEF, 2**32 - 1)
+STATELESS_FOLD_DATA = (0, 1, 12345, 2**31 + 5)
+STATELESS_SHAPES = {"odd": (7,), "even": (8,), "hw4": (13, 11, 4)}
+# (seed word, iterations, H, W) of the derived states.
+STATELESS_STATES = {"a": (0x9E3779B9, 0, 12, 16), "b": (7, 130, 5, 9)}
+
+
+def stateless_golden_arrays():
+    """The stateless golden file's arrays, computed in one jitted function."""
+    import jax
+    import jax.numpy as jnp
+    import jax.random as jr
+
+    from haskell_path_tracer_tpu.ops import rng as jax_rng
+
+    def words(seeds, data, states_args):
+        out = {}
+        for s, seed in zip(STATELESS_SEEDS, seeds):
+            out[f"key__{s}"] = jr.PRNGKey(seed)
+        key = jr.PRNGKey(1234)
+        for d, v in zip(STATELESS_FOLD_DATA, data):
+            out[f"fold_in__{d}"] = jr.fold_in(key, v)
+        for name, shape in STATELESS_SHAPES.items():
+            out[f"bits__{name}"] = jr.bits(key, shape, jnp.uint32)
+            out[f"uniform__{name}"] = jr.uniform(key, shape)
+        out["split__5"] = jr.split(key, 5)
+        for name, (word, it) in states_args.items():
+            _, _, h, w = STATELESS_STATES[name]
+            states = jr.bits(jr.fold_in(jr.PRNGKey(word), it), (h, w, 4), jnp.uint32)
+            for _ in range(12):
+                _, states = jax_rng.sfc32_next(states)
+            out[f"states__{name}"] = states
+        return out
+
+    out = jax.jit(words)(
+        [jnp.uint32(s) for s in STATELESS_SEEDS], [jnp.uint32(d) for d in STATELESS_FOLD_DATA],
+        {name: (jnp.uint32(a[0]), jnp.int32(a[1])) for name, a in STATELESS_STATES.items()})
+    out = {k: np.asarray(v) for k, v in out.items()}
+    for name, args in STATELESS_STATES.items():
+        out[f"states_args__{name}"] = np.array(args, np.int64)
+    return out
+
+
 def lane_agreement(rng_a, rng_b, color_a, color_b):
     """(share of lanes whose rng words all agree, share of color values
     isclose at rtol = atol = 1e-4, the same share among the values that
@@ -502,13 +556,17 @@ if __name__ == "__main__":
     split = {SPLIT_GOLDEN_PATH: lambda: split_golden_arrays(
         {c: jax_split_trace(c) for c in SPLIT_CASES})}
     files = {NEE_GOLDEN_PATH: lambda: nee_golden_arrays({c: jax_nee_trace(c) for c in NEE_CASES})}
-    if sys.argv[1:] == ["nee_grad"]:
+    stateless = {STATELESS_GOLDEN_PATH: stateless_golden_arrays}
+    if sys.argv[1:] == ["stateless"]:
+        files = stateless
+    elif sys.argv[1:] == ["nee_grad"]:
         files = nee_grad
     elif sys.argv[1:] == ["split"]:
         files = split
     elif sys.argv[1:] != ["nee"]:
         files.update(nee_grad)
         files.update(split)
+        files.update(stateless)
         files[GOLDEN_PATH] = lambda: golden_arrays(
             {c: jax_trace(c) for c in GOLDEN_CASES},
             {c: jax_grad_trace(c) for c in GRAD_CASES},
