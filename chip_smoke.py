@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's six CUDA libraries from ``haskell_path_tracer_torch/csrc``
-(one nvcc each, started together) and runs twenty-eight phases, each
+(one nvcc each, started together, with the g++ build of the native output
+library, csrc/ptru_native.cpp) and runs twenty-nine phases, each
 printing one line; any failure raises and the script exits non-zero
 without printing a result:
 
@@ -222,7 +223,31 @@ without printing a result:
      `render_radiance_sharded` on a 1x2 mesh equal to the mean of the two
      streams rendered on one device within 1e-6 relative; ms per sharded
      step at world 1 beside the unsharded step, and at world 2, with the
-     card's name and power limit; every launch counted from 0.
+     card's name and power limit; every launch counted from 0;
+ 29. the app layer: (a) the native output library (`runtime/native.py`,
+     built in phase 2; the phase fails if it does not load) against the
+     numpy tonemap and PNG encoder on an 800x600 / 15 b / 4 spp render:
+     its rgb8 within 1 LSB, its PNG decoding to its rgb8, both paths' ms
+     (host, median of 11); (b) the five projection functions on CUDA
+     inputs against CPU inputs within 1e-6 of the scale; (c)
+     `app/animate.py` in process at its defaults (400x300, 60 frames, 16
+     spp, 8 bounces): `--orbit` inline with PNG frames and physical with
+     EXR frames, and `--path` over 3 keyframes, 4 frames, each counted
+     from 0: exactly frames x 16 launches of #1 (inline) or #3 (physical),
+     every frame finite, lit and unlike the one before, every PNG through
+     the native path, frame 0 bit-equal to `Renderer.render` at its camera
+     and seed and that accumulator against the plain route (`kernel=
+     "torch"`) under the forward's lane tolerance (inline) or the NEE
+     tolerance (physical), frames/s; (d) `app/viewer.py` at the CLI
+     defaults (800x600, 15 bounces), inline and physical, on port 0 and
+     driven over HTTP: the page, an 800x600 PNG, `/status` with
+     iterations >= 1, rays/s > 0 and no error, a `/move` that moves the
+     camera (its tensors still on cuda), makes the count fall and is
+     followed by a new frame, `/move?fwd=nan` leaving the camera as it
+     was, 404 elsewhere, the variant's kernel launched from the render
+     thread (counted from 0), the thread joined after `stop`; ms per
+     served frame, and one frame's step, image, tonemap and PNG timed part
+     by part, with the tonemap and PNG's share.
 
 Lane tolerance of the forward (tests/test_pallas.py): >= 99.5% of lanes
 with equal rng words, >= 99% of color values isclose at rtol = atol =
@@ -244,7 +269,7 @@ cotangents per lane, off on at most 0.5% of lanes.  The dual-query route:
 rtol 5e-4, atol 5e-6 (tests/test_grad.py).
 
 The line before the last is a JSON object of the kernels with their
-launches on the main paths (phases 5, 9, 14, 19, 23, 27, 28, 18's dual-query
+launches on the main paths (phases 5, 9, 14, 19, 23, 27, 28, 29, 18's dual-query
 route and 26's fold routes), their times, their plain versions' and their bounds at each path's
 shape (the forward and the NEE kernel at 800x600 / 15 bounces / 1 spp, the
 recording forward and both backward kernels at 512x512 / 64 spp / 8
@@ -266,10 +291,15 @@ import os
 import re
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -279,7 +309,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))  # fold_cases: phase 18's tables and rays
 
+from haskell_path_tracer_torch.app import animate as AN  # noqa: E402
+from haskell_path_tracer_torch.app import viewer as VW  # noqa: E402
 from haskell_path_tracer_torch.app.main import main as cli_main  # noqa: E402
+from haskell_path_tracer_torch.core import projection as PJ  # noqa: E402
 from haskell_path_tracer_torch.diff import grad as G  # noqa: E402
 from haskell_path_tracer_torch.models import convert as C  # noqa: E402
 from haskell_path_tracer_torch.models import world  # noqa: E402
@@ -312,6 +345,9 @@ from haskell_path_tracer_torch.parallel import mesh as PM  # noqa: E402
 from haskell_path_tracer_torch.parallel import multihost as PMH  # noqa: E402
 from haskell_path_tracer_torch.parallel import shard as PS  # noqa: E402
 from haskell_path_tracer_torch.render.renderer import Renderer  # noqa: E402
+from haskell_path_tracer_torch.runtime import build as NB  # noqa: E402
+from haskell_path_tracer_torch.runtime import native as NN  # noqa: E402
+from haskell_path_tracer_torch.utils import image as IM  # noqa: E402
 from haskell_path_tracer_torch.utils.checkpoint import load_accumulator  # noqa: E402
 from haskell_path_tracer_torch.utils.config import RenderConfig  # noqa: E402
 from fold_cases import edge_rays, edge_spheres  # noqa: E402
@@ -3025,6 +3061,379 @@ def sharded_path(dev, smi) -> dict:
     return {"world1": rec, "world2": two, "launches": launches}
 
 
+# The app layer (phase 29): the native output path, projection, the
+# flythrough renderer and the live viewer.  The image the native and numpy
+# output paths take at 800x600 (the reference scene, 15 bounces, 4 spp),
+# and the host timings' repeats.
+NATIVE_SHAPE = (800, 600, 15, 4)
+HOST_REPS = 11
+# animate's defaults: width, height, frames, spp, bounces.
+ANIMATE = (400, 300, 60, 16, 8)
+# The --path run: 3 keyframes (the reference's camera first), 4 frames.
+PATH_KEYFRAMES = [
+    {"position": [1.0, -1.6, -4.8], "rotation": [0.314, -0.314, 0.0], "fov": 90.0},
+    {"position": [2.0, 0.5, -1.0], "rotation": [0.0, 1.0, 0.1], "fov": 60.0},
+    {"position": [3.0, -1.0, -4.0], "rotation": [0.2, 1.5, 0.0], "fov": 75.0},
+]
+PATH_FRAMES = 4
+# The viewer: the samples it accumulates before the move, and the longest
+# wait for any condition, in seconds.
+VIEWER_ITERATIONS = 20
+VIEWER_WAIT_S = 60.0
+
+
+def host_times(fn, reps: int) -> dict:
+    """Per-call host times of `fn` (no device work), median of `reps` after
+    one warm-up, in ms."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"n": reps, "median_ms": statistics.median(ms)}
+
+
+def png_pixels(blob: bytes) -> np.ndarray:
+    """Decode an 8-bit RGB PNG with one IDAT and filter 0 on every row (as
+    both writers write it) into uint8 [H, W, 3]."""
+    if blob[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    w, h = struct.unpack(">II", blob[16:24])
+    idat = blob.index(b"IDAT")
+    n = struct.unpack(">I", blob[idat - 4:idat])[0]
+    rows = np.frombuffer(zlib.decompress(blob[idat + 4:idat + 4 + n]), np.uint8).reshape(h, 1 + 3 * w)
+    if (rows[:, 0] != 0).any():
+        raise AssertionError("a PNG row with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def native_output(dev) -> dict:
+    """Phase 29 (a): the native library (built in phase 2 from its source
+    with g++) against the numpy tonemap and encoder on a rendered image."""
+    if not NN.available():
+        raise AssertionError(f"the native output library did not load: {NN.load_error()}")
+    w, h, bounces, spp = NATIVE_SHAPE
+    renderer = Renderer(RenderConfig(width=w, height=h, bounces=bounces, device="cuda"))
+    img = renderer.image(renderer.render(world.main_scene(dev), world.initial_camera(dev), spp, seed=0))
+    img = np.ascontiguousarray(img[::-1])  # as save_render flips it
+    native8 = NN.tonemap_rgb8(img, 0.6, 2.2)
+    numpy8 = IM.tonemap(img, 0.6, 2.2)
+    lsb = int(np.abs(native8.astype(int) - numpy8.astype(int)).max())
+    if lsb > 1:
+        raise AssertionError(f"native tonemap {lsb} LSB from numpy's (> 1)")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        a, b = os.path.join(tmp, "native.png"), os.path.join(tmp, "numpy.png")
+        NN.write_png(a, native8)
+        with open(a, "rb") as f:
+            if not np.array_equal(png_pixels(f.read()), native8):
+                raise AssertionError("the native PNG does not decode to the native rgb8")
+        times = {
+            "native_tonemap": host_times(lambda: NN.tonemap_rgb8(img, 0.6, 2.2), HOST_REPS),
+            "native_png": host_times(lambda: NN.write_png(a, native8), HOST_REPS),
+            "native_tonemap_png": host_times(lambda: NN.write_png(a, NN.tonemap_rgb8(img, 0.6, 2.2)),
+                                             HOST_REPS),
+            "numpy_tonemap": host_times(lambda: IM.tonemap(img, 0.6, 2.2), HOST_REPS),
+            "numpy_png": host_times(lambda: IM.write_png(b, numpy8), HOST_REPS),
+            "numpy_tonemap_png": host_times(lambda: IM.write_png(b, IM.tonemap(img, 0.6, 2.2)),
+                                            HOST_REPS),
+        }
+        png_bytes = (os.path.getsize(a), os.path.getsize(b))
+    return {"library": os.path.relpath(NB.library_path(), ROOT), "load_error": NN.load_error(), "shape": f"{w}x{h} b{bounces} spp{spp}",
+            "max_lsb": lsb, "lsb_values": int((native8 != numpy8).sum()),
+            "png_bytes": {"native": png_bytes[0], "numpy": png_bytes[1]}, **times}
+
+
+def projection_check(dev) -> dict:
+    """Phase 29 (b): each projection function on CUDA inputs against the
+    same on CPU inputs, batched, within 1e-6."""
+    rng = np.random.default_rng(29)
+    vec = [rng.normal(size=(64, 3)).astype(np.float32) for _ in range(3)]
+    fovy = rng.uniform(0.3, 2.5, 64).astype(np.float32)
+    aspect = rng.uniform(0.5, 2.5, 64).astype(np.float32)
+    near = rng.uniform(0.01, 1.0, 64).astype(np.float32)
+    far = near + rng.uniform(1.0, 500.0, 64).astype(np.float32)
+    cases = {"look_at": vec, "look_at_scratch": vec, "perspective": (fovy, aspect, near, far),
+             "infinite_perspective": (fovy, aspect, near),
+             "inverse_infinite_perspective": (fovy, aspect, near)}
+    out = {}
+    for name, args in cases.items():
+        fn = getattr(PJ, name)
+        got = fn(*(torch.as_tensor(a, device=dev) for a in args))
+        want = fn(*(torch.as_tensor(a) for a in args))
+        if got.device.type != "cuda" or got.shape != want.shape:
+            raise AssertionError(f"projection {name}: {got.device} {tuple(got.shape)}")
+        err = (got.cpu() - want).abs().max().item()
+        if not err <= 1e-6 * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"projection {name}: CUDA against CPU {err}")
+        out[name] = err
+    return out
+
+
+def animate_run(name, argv, frames_log) -> dict:
+    """One `animate.main` run on the card, every frame's image recorded
+    through `save_render`; its frames/s and the output paths it took."""
+    save_render = IM.save_render
+    frames_log.clear()
+
+    def recording(path, image, **kw):
+        frames_log.append((path, np.array(image)))
+        return save_render(path, image, **kw)
+
+    IM.SAVE_PATHS.update(native=0, numpy=0)
+    IM.save_render = recording
+    try:
+        t0 = time.perf_counter()
+        rc = AN.main(["--device", "cuda", "--seed", "0", "--quiet", *argv])
+        wall = time.perf_counter() - t0
+    finally:
+        IM.save_render = save_render
+    if rc != 0:
+        raise AssertionError(f"animate {name} returned {rc}")
+    return {"wall_s": wall, "frames": len(frames_log), "frames_per_s": len(frames_log) / wall,
+            "save_paths": dict(IM.SAVE_PATHS)}
+
+
+def frame_checks(name, frames) -> dict:
+    """Every frame finite and lit, and each differs from the one before."""
+    lit = []
+    for j, (_, img) in enumerate(frames):
+        if not np.isfinite(img).all():
+            raise AssertionError(f"animate {name}: frame {j} is not finite")
+        lit.append(float((np.abs(img).sum(-1) > 1e-3).mean()))
+        if lit[-1] == 0.0:
+            raise AssertionError(f"animate {name}: frame {j} is black")
+        if j and np.array_equal(img, frames[j - 1][1]):
+            raise AssertionError(f"animate {name}: frames {j - 1} and {j} are equal")
+    return {"lit_share_min": min(lit), "mean_first": float(frames[0][1].mean())}
+
+
+def frame0_checks(name, algorithm, camera_args, frame0, dev) -> dict:
+    """Frame 0 bit-equal to `Renderer.render` at its camera and seed, and
+    that accumulator against the plain route (`kernel="torch"`) under the
+    variant's lane contract."""
+    w, h, _, spp, bounces = ANIMATE
+    scene, cam = world.main_scene(dev), Camera.create(*camera_args, dev)
+    accs = {}
+    for kernel in ("auto", "torch"):
+        r = Renderer(RenderConfig(width=w, height=h, algorithm=algorithm, bounces=bounces,
+                                  seed=0, kernel=kernel, device="cuda"))
+        accs[kernel] = r.render(scene, cam, spp, seed=0)
+    img = accs["auto"].image.cpu().numpy()
+    if not np.array_equal(img.view(np.uint32), frame0.view(np.uint32)):
+        raise AssertionError(f"animate {name}: frame 0 is not Renderer.render's image bit for bit")
+    got, want = (accs["auto"].color, accs["auto"].rng), (accs["torch"].color, accs["torch"].rng)
+    label = f"animate {name} frame 0 vs plain"
+    return lane_parity(label, got, want) if algorithm == "physical" else check(label, got, want)
+
+
+def animate_path(dev) -> dict:
+    """Phase 29 (c): `animate.main` at its defaults (400x300, 60 frames,
+    16 spp, 8 bounces), `--orbit` inline (PNG frames) and physical (EXR
+    frames), then `--path` over 3 keyframes, 4 frames; each run counted
+    from 0, one launch of the variant's kernel per 1-spp step."""
+    w, h, n_frames, spp, bounces = ANIMATE
+    d = AN.build_parser().parse_args([])
+    if (d.width, d.height, d.frames, d.spp, d.bounces, d.device) != (*ANIMATE, "cuda"):
+        raise AssertionError(f"animate's defaults are not {ANIMATE} on cuda: {d}")
+    out, launches, frames = {}, {}, []
+    orbit0 = AN.orbit_path(n_frames)[0]
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        path_json = os.path.join(tmp, "path.json")
+        with open(path_json, "w") as f:
+            json.dump(PATH_KEYFRAMES, f)
+        runs = {
+            "inline_orbit": ("inline", ["--orbit", "-o", os.path.join(tmp, "inline_%04d.png")],
+                             n_frames, orbit0),
+            "physical_orbit": ("physical", ["--orbit", "--variant", "physical",
+                                            "-o", os.path.join(tmp, "physical_%04d.exr")],
+                               n_frames, orbit0),
+            "inline_path": ("inline", ["--path", path_json, "--frames", str(PATH_FRAMES),
+                                       "-o", os.path.join(tmp, "path_%04d.png")],
+                            PATH_FRAMES, None),
+        }
+        for name, (algorithm, argv, count, cam0) in runs.items():
+            run_launches = {}
+            rec = counted(lambda: animate_run(name, argv, frames), run_launches)
+            kernel = "nee_megakernel" if algorithm == "physical" else "megakernel"
+            want = {k: 0 for k in run_launches}
+            want[kernel] = count * spp
+            if run_launches != want:
+                raise AssertionError(f"animate {name}: launches {run_launches}, not {want}")
+            if rec["frames"] != count:
+                raise AssertionError(f"animate {name}: {rec['frames']} frames, not {count}")
+            if algorithm == "inline" and rec["save_paths"] != {"native": count, "numpy": 0}:
+                raise AssertionError(f"animate {name}: PNG paths {rec['save_paths']}")
+            rec.update(frame_checks(name, frames))
+            if cam0 is None:
+                k = PATH_KEYFRAMES[0]
+                cam0 = (k["position"], k["rotation"], k["fov"])
+            rec["frame0_vs_plain"] = frame0_checks(name, algorithm, cam0, frames[0][1], dev)
+            first = frames[0][0]
+            if first.endswith(".exr"):
+                if not np.array_equal(IM.read_exr(first), frames[0][1][::-1]):
+                    raise AssertionError(f"animate {name}: the EXR frame is not the image")
+            else:
+                with open(first, "rb") as f:
+                    if not np.array_equal(png_pixels(f.read()), NN.tonemap_rgb8(
+                            np.ascontiguousarray(frames[0][1][::-1]), 0.6, 2.2)):
+                        raise AssertionError(f"animate {name}: the PNG frame is not the native tonemap")
+            rec["launches"] = {kernel: run_launches[kernel]}
+            for k, v in run_launches.items():
+                launches[k] = launches.get(k, 0) + v
+            out[name] = rec
+    out["shape"] = f"{w}x{h} frames{n_frames} spp{spp} b{bounces}"
+    out["launches"] = launches
+    return out
+
+
+def http(url, method="GET", timeout=30.0):
+    """(status, body) of one request to the viewer on localhost."""
+    req = urllib.request.Request(url, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def wait_until(pred, what: str):
+    deadline = time.perf_counter() + VIEWER_WAIT_S
+    while time.perf_counter() < deadline:
+        value = pred()
+        if value:
+            return value
+        time.sleep(0.02)
+    raise AssertionError(f"viewer: timed out waiting for {what}")
+
+
+def viewer_frame_times(renderer, scene, cam) -> dict:
+    """The work of one viewer frame at 1 spp, timed on the host part by
+    part: the step (its host work and launch), the image (the wait for the
+    device and the copy to the host), the numpy tonemap, the numpy PNG
+    encoder; medians of HOST_REPS after a warm-up."""
+    acc = renderer.init_accumulator()
+    parts = {"step": [], "image": [], "tonemap": [], "png": []}
+    for _ in range(HOST_REPS + 1):
+        t = [time.perf_counter()]
+        acc = renderer.step(scene, cam, acc, spp=1)
+        t.append(time.perf_counter())
+        img = renderer.image(acc)
+        t.append(time.perf_counter())
+        rgb8 = IM.tonemap(img[::-1], 0.6, 2.2)
+        t.append(time.perf_counter())
+        IM.encode_png(rgb8)
+        t.append(time.perf_counter())
+        for k, a, b in zip(parts, t, t[1:]):
+            parts[k].append((b - a) * 1e3)
+    med = {k: statistics.median(v[1:]) for k, v in parts.items()}  # the first is the warm-up
+    total = sum(med.values())
+    return {"n": HOST_REPS, **{f"{k}_ms": v for k, v in med.items()}, "frame_ms": total,
+            "tonemap_png_share": (med["tonemap"] + med["png"]) / total}
+
+
+def viewer_run(algorithm, dev) -> dict:
+    """Phase 29 (d), one variant: the viewer at the CLI defaults (800x600,
+    15 bounces) on port 0, served from a thread, driven over HTTP, then
+    stopped and its render thread joined."""
+    renderer = Renderer(RenderConfig(algorithm=algorithm, device="cuda"))
+    scene, cam = world.main_scene(dev), world.initial_camera(dev)
+    server, state, thread = VW.serve(scene, cam, renderer, port=0)
+    srv = threading.Thread(target=server.serve_forever, daemon=True)
+    srv.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    rec = {}
+    try:
+        code, page = http(base + "/")
+        if code != 200 or b"path tracer" not in page:
+            raise AssertionError(f"viewer {algorithm}: / gave {code}")
+        wait_until(lambda: state.png or state.error, "a first frame")
+        if state.error is not None:
+            raise AssertionError(f"viewer {algorithm}: render thread error {state.error}")
+        code, png = http(base + "/image.png")
+        pixels = png_pixels(png)
+        if code != 200 or pixels.shape != (600, 800, 3):
+            raise AssertionError(f"viewer {algorithm}: /image.png gave {code}, {pixels.shape}")
+
+        def status():
+            return json.loads(http(base + "/status")[1])
+
+        def accumulated():
+            s = status()
+            return s if s["iterations"] >= VIEWER_ITERATIONS or s["error"] else None
+
+        t0, it0 = time.perf_counter(), status()["iterations"]
+        before = wait_until(accumulated, f"{VIEWER_ITERATIONS} samples")
+        rec["served_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / max(before["iterations"] - it0, 1)
+        if before["iterations"] < 1 or before["rays_per_s"] <= 0 or before["error"] is not None:
+            raise AssertionError(f"viewer {algorithm}: status {before}")
+        rec["status_before_move"] = before
+        cam_before = C.camera_to_numpy(state.camera)
+        with state.lock:
+            png_before = state.png
+        code, _ = http(base + "/move?fwd=1&right=0&up=0&dx=5&dy=0&sprint=1", "POST")
+        cam_after = C.camera_to_numpy(state.camera)
+        on_cuda = all(getattr(state.camera, f).is_cuda for f in ("position", "rotation", "fov"))
+        if code != 200 or np.allclose(cam_before["position"], cam_after["position"]) or not on_cuda:
+            raise AssertionError(f"viewer {algorithm}: /move gave {code}, camera on cuda {on_cuda}")
+        wait_until(lambda: status()["iterations"] < before["iterations"], "the count to fall")
+        wait_until(lambda: state.png and state.png is not png_before, "a frame after the move")
+        code, png = http(base + "/image.png")
+        if code != 200 or png == png_before or png_pixels(png).shape != (600, 800, 3):
+            raise AssertionError(f"viewer {algorithm}: no new frame after the move")
+        code, _ = http(base + "/move?fwd=nan", "POST")
+        cam_nan = C.camera_to_numpy(state.camera)
+        if code != 200 or any(not np.array_equal(cam_nan[f], cam_after[f]) for f in cam_nan):
+            raise AssertionError(f"viewer {algorithm}: /move?fwd=nan moved the camera")
+        code, _ = http(base + "/nope")
+        if code != 404:
+            raise AssertionError(f"viewer {algorithm}: /nope gave {code}")
+        rec["status_end"] = status()
+        if rec["status_end"]["error"] is not None:
+            raise AssertionError(f"viewer {algorithm}: render thread error {rec['status_end']['error']}")
+    finally:
+        state.stop = True
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=VIEWER_WAIT_S)
+        srv.join(timeout=VIEWER_WAIT_S)
+    if thread.is_alive() or srv.is_alive():
+        raise AssertionError(f"viewer {algorithm}: a thread did not join")
+    if state.error is not None:
+        raise AssertionError(f"viewer {algorithm}: render thread error {state.error}")
+    return rec
+
+
+def viewer_path(dev, smi) -> dict:
+    """Phase 29 (d): the viewer inline and physical, each counted from 0;
+    the render thread must have launched the variant's kernel."""
+    out, launches = {"nvidia_smi": smi}, {}
+    for algorithm, kernel in (("inline", "megakernel"), ("physical", "nee_megakernel")):
+        run = {}
+        rec = counted(lambda: viewer_run(algorithm, dev), run)
+        if not run.get(kernel):
+            raise AssertionError(f"viewer {algorithm}: the render thread launched no {kernel}")
+        rec["launches"] = {k: v for k, v in run.items() if v}
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+        renderer = Renderer(RenderConfig(algorithm=algorithm, device="cuda"))
+        rec["frame_times"] = viewer_frame_times(renderer, world.main_scene(dev), world.initial_camera(dev))
+        out[algorithm] = rec
+    out["launches"] = launches
+    return out
+
+
+def app_path(dev, smi) -> dict:
+    """Phase 29: the app layer and the native output path."""
+    out = {"native": native_output(dev), "projection_max_err": projection_check(dev)}
+    anim = animate_path(dev)
+    view = viewer_path(dev, smi)
+    launches = {k: anim["launches"].get(k, 0) + view["launches"].get(k, 0)
+                for k in set(anim["launches"]) | set(view["launches"])}
+    out.update(animate=anim, viewer=view, launches=launches)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -3043,17 +3452,20 @@ def main() -> int:
     # started together.
     builds = {"megakernel": MK, "megakernel_vjp": V, "nee_megakernel": NE,
               "nee_megakernel_vjp": NV, "sphere_fold": SF, "split": SP}
-    for mod in builds.values():
-        if os.path.exists(mod.library_path()):
-            os.unlink(mod.library_path())
+    # The native output library (g++, phase 29) is built beside them.
+    for lib in [mod.library_path() for mod in builds.values()] + [NB.library_file()]:
+        if os.path.exists(lib):
+            os.unlink(lib)
 
-    def timed_build(mod):
+    def timed(build):
         t = time.perf_counter()
-        return os.path.relpath(mod.build(), ROOT), time.perf_counter() - t
+        return os.path.relpath(build(), ROOT), time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builds)) as pool:
-        done = dict(zip(builds, pool.map(timed_build, builds.values())))
+    with ThreadPoolExecutor(len(builds) + 1) as pool:
+        native_build = pool.submit(timed, NB.library_path)
+        done = dict(zip(builds, pool.map(timed, [mod.build for mod in builds.values()])))
+        done["ptru_native"] = native_build.result()
     build_s = time.perf_counter() - t0
     nee_res = nee_kernel_resources(dev)
     phase("build", seconds=build_s,
@@ -3259,8 +3671,11 @@ def main() -> int:
     # 28: row-sharded execution.
     sharded = sharded_path(dev, smi)
     phase("sharded", **sharded)
+    # 29: the app layer and the native output path.
+    app = app_path(dev, smi)
+    phase("app", **app)
     slice_launches = {k: stateless["launches"].get(k, 0) + sharded["launches"].get(k, 0)
-                      for k in launch_counts()}
+                      + app["launches"].get(k, 0) for k in launch_counts()}
 
     print(smi)
     res = times["resources"]

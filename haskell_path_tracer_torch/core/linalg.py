@@ -44,6 +44,13 @@ def norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(quadrance(v))
 
 
+def normalize(v: torch.Tensor) -> torch.Tensor:
+    """Normalize over the trailing axis, as `linear`'s `normalize`: no
+    epsilon, so a zero vector gives NaN/Inf as in the reference.  Use
+    `normalize_safe` where that must not happen."""
+    return v / norm(v)[..., None]
+
+
 def normalize_safe(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Normalize with |v| clamped away from 0, so zero vectors stay finite."""
     n = torch.clamp(norm(v), min=eps)

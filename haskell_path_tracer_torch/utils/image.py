@@ -2,8 +2,10 @@
 reader, in numpy and zlib.
 
 Vendored from ``haskell_path_tracer_tpu/utils/image.py`` (that package
-cannot be imported without JAX).  The native C++ tonemap and PNG encoder
-it can use are not wired here yet (ROADMAP Queue A #6).
+cannot be imported without JAX).  `save_render` takes the native C++
+tonemap and PNG writer (`runtime/native.py`, the port's own
+``csrc/ptru_native.cpp``, built with g++ at first use) when that library
+loads, and the numpy ones here when it does not, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -12,6 +14,10 @@ import struct
 import zlib
 
 import numpy as np
+
+# Tonemapped writes by `save_render`, by the path they took: "native" (the
+# C++ library) or "numpy".  Callers reset them to 0 to count a run's.
+SAVE_PATHS = {"native": 0, "numpy": 0}
 
 
 def tonemap(image: np.ndarray, exposure: float = 1.0, gamma: float = 2.2) -> np.ndarray:
@@ -219,12 +225,26 @@ def save_render(path: str, image, exposure: float = 1.0, gamma: float = 2.2):
     The accumulator's row 0 carries the downward-tilted primary rays; the
     reference showed that array through an OpenGL texture whose row 0 is
     at the bottom of the window, while image files put row 0 at the top —
-    so flip vertically here, at the display boundary."""
+    so flip vertically here, at the display boundary.
+
+    The tonemap and the PNG encoder are the native ones when the library
+    loads (`runtime/native.available()`), else numpy's; `SAVE_PATHS` counts
+    which one each tonemapped write took."""
+    from ..runtime import native
+
     img = np.asarray(image)[::-1]
     if path.endswith(".exr"):
         write_exr(path, img)
         return path
-    rgb8 = tonemap(img, exposure=exposure, gamma=gamma)
+    if native.available():
+        SAVE_PATHS["native"] += 1
+        rgb8 = native.tonemap_rgb8(np.ascontiguousarray(img, np.float32), exposure, gamma)
+        if not path.endswith(".ppm"):
+            native.write_png(path, rgb8)
+            return path
+    else:
+        SAVE_PATHS["numpy"] += 1
+        rgb8 = tonemap(img, exposure=exposure, gamma=gamma)
     if path.endswith(".ppm"):
         write_ppm(path, rgb8)
     else:
