@@ -4,7 +4,7 @@
 
 Builds the port's six CUDA libraries from ``haskell_path_tracer_torch/csrc``
 (one nvcc each, started together, with the g++ build of the native output
-library, csrc/ptru_native.cpp) and runs twenty-nine phases, each
+library, csrc/ptru_native.cpp) and runs thirty phases, each
 printing one line; any failure raises and the script exits non-zero
 without printing a result:
 
@@ -247,7 +247,13 @@ without printing a result:
      was, 404 elsewhere, the variant's kernel launched from the render
      thread (counted from 0), the thread joined after `stop`; ms per
      served frame, and one frame's step, image, tonemap and PNG timed part
-     by part, with the tonemap and PNG's share.
+     by part, with the tonemap and PNG's share;
+ 30. the port's profiler spans (`utils/metrics.py:span`,
+     `tests/span_cases.py`): under `torch.profiler` a presorted NEE batch
+     and a physical NEE gradient open the tables', presort's, probe's,
+     NEE launch's, gradient's and NEE backward launch's spans, the last
+     inside `hpt.grad.backward` from the autograd engine's device thread,
+     and none is mirrored on the device's timeline; the count of each.
 
 Lane tolerance of the forward (tests/test_pallas.py): >= 99.5% of lanes
 with equal rng words, >= 99% of color values isclose at rtol = atol =
@@ -307,7 +313,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "tests"))  # fold_cases: phase 18's tables and rays
+sys.path.insert(0, os.path.join(ROOT, "tests"))  # fold_cases, span_cases: phases 18 and 30
 
 from haskell_path_tracer_torch.app import animate as AN  # noqa: E402
 from haskell_path_tracer_torch.app import viewer as VW  # noqa: E402
@@ -351,6 +357,7 @@ from haskell_path_tracer_torch.utils import image as IM  # noqa: E402
 from haskell_path_tracer_torch.utils.checkpoint import load_accumulator  # noqa: E402
 from haskell_path_tracer_torch.utils.config import RenderConfig  # noqa: E402
 from fold_cases import edge_rays, edge_spheres  # noqa: E402
+from span_cases import check_launch_spans  # noqa: E402
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
 NEE_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_nee_golden.npz")
 RNG_MIN, CLOSE_MIN = 0.995, 0.99
@@ -3674,6 +3681,8 @@ def main() -> int:
     # 29: the app layer and the native output path.
     app = app_path(dev, smi)
     phase("app", **app)
+    # 30: the port's profiler spans.
+    phase("spans", **check_launch_spans(dev))
     slice_launches = {k: stateless["launches"].get(k, 0) + sharded["launches"].get(k, 0)
                       + app["launches"].get(k, 0) for k in launch_counts()}
 

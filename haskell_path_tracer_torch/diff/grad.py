@@ -38,6 +38,7 @@ from ..ops.megakernel_vjp import trace_inline_fused_diff
 from ..ops.nee_vjp import trace_physical_nee_diff
 from ..render.integrator import trace_inline
 from ..render.nee import trace_physical
+from ..utils.metrics import span
 
 BACKENDS = ("auto", "torch", "cuda")
 
@@ -276,13 +277,18 @@ def image_loss(
 
 def loss_and_grad(params, template, camera, target, rng_state, **kw):
     """(loss, SceneParams of gradients) of `image_loss`; a leaf the loss
-    does not reach gets a zero gradient."""
+    does not reach gets a zero gradient.  The loss runs in span
+    "hpt.grad.forward" (the scene's rebuild, the rays, the tables, the
+    forward launches, the MSE), the gradient in span "hpt.grad.backward"
+    (autograd with its backward launches)."""
     leaves = [t.detach().requires_grad_() for t in params]
     with torch.enable_grad():
-        loss = image_loss(
-            SceneParams(*leaves), template, camera, target, rng_state, **kw
-        )
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("hpt.grad.forward"):
+            loss = image_loss(
+                SceneParams(*leaves), template, camera, target, rng_state, **kw
+            )
+        with span("hpt.grad.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), SceneParams(
         *(torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves))
     )

@@ -13,6 +13,7 @@ import math
 import torch
 
 from ..core import linalg
+from ..utils.metrics import span
 from .objects import Camera, Rays
 
 
@@ -46,26 +47,27 @@ def primary_rays(
 
     For a tile of rows of a larger image, `height` is the tile height,
     `row_offset` its first global row and `full_height` the image height
-    that screen space is normalized against.
+    that screen space is normalized against.  Runs in span "hpt.camera.rays".
     """
-    device = camera.position.device
-    center, c_dir, right_offset = camera_basis(camera)
-    fh = height if full_height is None else full_height
-    f32 = dict(dtype=torch.float32, device=device)
-    aspect = torch.tensor(float(width), **f32) / torch.tensor(float(fh), **f32)
-    top_offset = linalg.cross(c_dir, right_offset) / aspect
+    with span("hpt.camera.rays"):
+        device = camera.position.device
+        center, c_dir, right_offset = camera_basis(camera)
+        fh = height if full_height is None else full_height
+        f32 = dict(dtype=torch.float32, device=device)
+        aspect = torch.tensor(float(width), **f32) / torch.tensor(float(fh), **f32)
+        top_offset = linalg.cross(c_dir, right_offset) / aspect
 
-    xs = torch.arange(width, **f32).expand(height, width)
-    ys = torch.arange(height, **f32)[:, None].expand(height, width)
-    ys = ys + torch.tensor(float(row_offset), **f32)
-    screen_x = xs / float(width) * 2.0 - 1.0
-    screen_y = ys / float(-fh) * 2.0 + 1.0
+        xs = torch.arange(width, **f32).expand(height, width)
+        ys = torch.arange(height, **f32)[:, None].expand(height, width)
+        ys = ys + torch.tensor(float(row_offset), **f32)
+        screen_x = xs / float(width) * 2.0 - 1.0
+        screen_y = ys / float(-fh) * 2.0 + 1.0
 
-    virtual_point = (
-        center
-        + right_offset * screen_x[..., None]
-        + top_offset * screen_y[..., None]
-    )
-    ray_dir = linalg.normalize_safe(virtual_point - camera.position)
-    origin = camera.position.expand_as(ray_dir).contiguous()
-    return Rays(origin=origin, direction=ray_dir.contiguous())
+        virtual_point = (
+            center
+            + right_offset * screen_x[..., None]
+            + top_offset * screen_y[..., None]
+        )
+        ray_dir = linalg.normalize_safe(virtual_point - camera.position)
+        origin = camera.position.expand_as(ray_dir).contiguous()
+        return Rays(origin=origin, direction=ray_dir.contiguous())

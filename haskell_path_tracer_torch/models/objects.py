@@ -21,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.metrics import host_read
+
 # BRDF kind tags (the reference's `Brdf` sum type, plus the dielectric
 # extension of the JAX package).
 BRDF_MATTE = 0
@@ -182,9 +184,10 @@ class Scene:
         return self.spheres.pos.device
 
     def has_dielectric(self) -> bool:
-        """Whether any primitive is glass (reads the kinds back to the host)."""
+        """Whether any primitive is glass (reads the kinds back to the host,
+        one `host_read` per part until the first glass)."""
         return any(
-            bool((part.material.brdf_kind == BRDF_DIELECTRIC).any())
+            bool(host_read((part.material.brdf_kind == BRDF_DIELECTRIC).any()))
             for part in (self.spheres, self.planes, self.boxes, self.triangles)
             if part.count
         )

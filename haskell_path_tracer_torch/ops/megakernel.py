@@ -37,6 +37,7 @@ import torch
 
 from ..models.objects import Rays, Scene
 from ..core import linalg
+from ..utils.metrics import span
 from .intersect import EPSILON, INFINITE, PLANE_DENOM_EPS
 from . import rng as rng_ops
 from .brdf import INV_TWO_PI
@@ -597,15 +598,17 @@ def launch_kernel(geom, mat, counts, rays, rng, num_bounces, spp,
                 radiance.data_ptr(), rng_out.data_ptr())
     if record:
         samples = torch.empty((H, W, spp, 4), dtype=torch.int32, device=device)
-        err = lib.hpt_megakernel_record_launch(
-            *operands, samples.data_ptr(), H * W, spp, num_bounces,
-            int(has_dielectric), stream,
-        )
-    else:
-        err = lib.hpt_megakernel_launch(
-            *operands, H * W, spp, num_bounces, int(russian_roulette), rr_start,
-            int(has_dielectric), stream,
-        )
+    with span("hpt.launch.megakernel"):
+        if record:
+            err = lib.hpt_megakernel_record_launch(
+                *operands, samples.data_ptr(), H * W, spp, num_bounces,
+                int(has_dielectric), stream,
+            )
+        else:
+            err = lib.hpt_megakernel_launch(
+                *operands, H * W, spp, num_bounces, int(russian_roulette), rr_start,
+                int(has_dielectric), stream,
+            )
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -52,6 +52,7 @@ import os
 import torch
 
 from ..models.objects import Rays, Scene
+from ..utils.metrics import span
 from . import megakernel as MK
 
 SOURCE = os.path.join(MK.CSRC, "megakernel_vjp.cu")
@@ -167,14 +168,15 @@ def launch_backward(geom, mat, counts, rays, rng, g_rad, num_bounces, spp,
     launch = (lib.hpt_megakernel_vjp_launch if rng_samples is None
               else lib.hpt_megakernel_vjp_samples_launch)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = launch(
-        geom.data_ptr(), geom.shape[1], mat.data_ptr(), *counts,
-        rays.origin.data_ptr(), rays.direction.data_ptr(),
-        (rng if rng_samples is None else rng_samples).data_ptr(),
-        g_rad.data_ptr(), d_geom.data_ptr(), d_mat.data_ptr(),
-        d_origin.data_ptr(), d_direction.data_ptr(),
-        H * W, spp, num_bounces, int(has_dielectric), stream,
-    )
+    with span("hpt.launch.megakernel_backward"):
+        err = launch(
+            geom.data_ptr(), geom.shape[1], mat.data_ptr(), *counts,
+            rays.origin.data_ptr(), rays.direction.data_ptr(),
+            (rng if rng_samples is None else rng_samples).data_ptr(),
+            g_rad.data_ptr(), d_geom.data_ptr(), d_mat.data_ptr(),
+            d_origin.data_ptr(), d_direction.data_ptr(),
+            H * W, spp, num_bounces, int(has_dielectric), stream,
+        )
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(
             f"megakernel_vjp refused num_bounces={num_bounces}: the replay "

@@ -48,6 +48,7 @@ import torch
 
 from ..core import linalg
 from ..models.objects import BRDF_DIELECTRIC, BRDF_GLOSSY, Rays, Scene
+from ..utils.metrics import host_read, span
 from . import megakernel as MK
 from .intersect import _payload_table, nearest_t_prim
 
@@ -85,11 +86,11 @@ def nee_eligible(scene: Scene) -> bool:
 def scene_light_indices(scene: Scene) -> tuple:
     """The NEE emitters as a static tuple in `sample_light`'s index space:
     spheres first (i < spheres names sphere i), then triangles (i names
-    triangle i - spheres).  Reads the illuminance on the host."""
+    triangle i - spheres).  Reads the illuminance on the host (`host_read`)."""
     ns = scene.spheres.count
-    idx = [int(i) for i in np.nonzero(scene.spheres.material.illuminance.cpu().numpy() > 0.0)[0]]
+    idx = [int(i) for i in np.nonzero(host_read(scene.spheres.material.illuminance) > 0.0)[0]]
     if scene.triangles.count:
-        til = scene.triangles.material.illuminance.cpu().numpy()
+        til = host_read(scene.triangles.material.illuminance)
         idx += [ns + int(i) for i in np.nonzero(til > 0.0)[0]]
     return tuple(idx)
 
@@ -120,56 +121,57 @@ class NeeTables:
 
 
 def nee_scene_tables(scene: Scene, light_idx=None) -> NeeTables:
-    """Pack `scene` for the kernels; `light_idx` is `scene_light_indices`
-    (read from the scene when None)."""
-    if light_idx is None:
-        light_idx = scene_light_indices(scene)
-    sp, pl, bx, tr = scene.spheres, scene.planes, scene.boxes, scene.triangles
-    ns, npl, nb = sp.count, pl.count, bx.count
+    """Pack `scene` for the kernels, in span "hpt.nee.tables"; `light_idx`
+    is `scene_light_indices` (read from the scene when None)."""
+    with span("hpt.nee.tables"):
+        if light_idx is None:
+            light_idx = scene_light_indices(scene)
+        sp, pl, bx, tr = scene.spheres, scene.planes, scene.boxes, scene.triangles
+        ns, npl, nb = sp.count, pl.count, bx.count
 
-    def rows(*cols, width):
-        t = torch.cat(cols, dim=-1)
-        return torch.cat([t, t.new_zeros(t.shape[0], width - t.shape[1])], dim=-1)
+        def rows(*cols, width):
+            t = torch.cat(cols, dim=-1)
+            return torch.cat([t, t.new_zeros(t.shape[0], width - t.shape[1])], dim=-1)
 
-    e1 = tr.v1 - tr.v0
-    e2 = tr.v2 - tr.v0
-    fold = torch.cat([
-        rows(sp.pos, (sp.radius * sp.radius)[:, None], width=4).reshape(-1),
-        rows(pl.pos, pl.normal, width=8).reshape(-1),
-        rows(bx.lo, bx.hi, width=8).reshape(-1),
-        rows(tr.v0, e1, e2, linalg.norm(linalg.cross(e1, e2))[:, None], width=12).reshape(-1),
-    ])
+        e1 = tr.v1 - tr.v0
+        e2 = tr.v2 - tr.v0
+        fold = torch.cat([
+            rows(sp.pos, (sp.radius * sp.radius)[:, None], width=4).reshape(-1),
+            rows(pl.pos, pl.normal, width=8).reshape(-1),
+            rows(bx.lo, bx.hi, width=8).reshape(-1),
+            rows(tr.v0, e1, e2, linalg.norm(linalg.cross(e1, e2))[:, None], width=12).reshape(-1),
+        ])
 
-    lights = sp.pos.new_zeros(1, 16)
-    if len(light_idx):
-        li = torch.tensor(light_idx, dtype=torch.int64)
-        if sp.pos.is_cuda:
-            # From pinned memory the copy does not wait for the stream:
-            # a progressive step packs the tables every time.
-            li = li.pin_memory().to(sp.pos.device, non_blocking=True)
-        s = torch.clamp(li, max=ns - 1)
-        zeros = sp.pos.new_zeros(len(li), 1)
-        m = sp.material
-        lights = torch.cat([
-            zeros, li[:, None].to(torch.float32), m.color[s] * m.illuminance[s][:, None],
-            sp.pos[s], sp.radius[s][:, None], zeros.expand(-1, 7),
-        ], dim=-1)
-        if tr.count:
-            k = torch.clamp(li - ns, 0, tr.count - 1)
-            m = tr.material
-            tri_rows = torch.cat([
-                zeros + 1.0, (li + npl + nb)[:, None].to(torch.float32),
-                m.color[k] * m.illuminance[k][:, None], tr.v0[k], zeros, e1[k], e2[k], zeros,
+        lights = sp.pos.new_zeros(1, 16)
+        if len(light_idx):
+            li = torch.tensor(light_idx, dtype=torch.int64)
+            if sp.pos.is_cuda:
+                # From pinned memory the copy does not wait for the stream:
+                # a progressive step packs the tables every time.
+                li = li.pin_memory().to(sp.pos.device, non_blocking=True)
+            s = torch.clamp(li, max=ns - 1)
+            zeros = sp.pos.new_zeros(len(li), 1)
+            m = sp.material
+            lights = torch.cat([
+                zeros, li[:, None].to(torch.float32), m.color[s] * m.illuminance[s][:, None],
+                sp.pos[s], sp.radius[s][:, None], zeros.expand(-1, 7),
             ], dim=-1)
-            lights = torch.where((li >= ns)[:, None], tri_rows, lights)
-    return NeeTables(
-        fold=fold.contiguous(),
-        payload=_payload_table(scene).contiguous(),
-        lights=lights.contiguous(),
-        counts=(ns, npl, nb, tr.count),
-        num_lights=len(light_idx),
-        scene=scene,
-    )
+            if tr.count:
+                k = torch.clamp(li - ns, 0, tr.count - 1)
+                m = tr.material
+                tri_rows = torch.cat([
+                    zeros + 1.0, (li + npl + nb)[:, None].to(torch.float32),
+                    m.color[k] * m.illuminance[k][:, None], tr.v0[k], zeros, e1[k], e2[k], zeros,
+                ], dim=-1)
+                lights = torch.where((li >= ns)[:, None], tri_rows, lights)
+        return NeeTables(
+            fold=fold.contiguous(),
+            payload=_payload_table(scene).contiguous(),
+            lights=lights.contiguous(),
+            counts=(ns, npl, nb, tr.count),
+            num_lights=len(light_idx),
+            scene=scene,
+        )
 
 
 # The CUDA kernels --------------------------------------------------------
@@ -248,10 +250,11 @@ def launch_probe(tables: NeeTables, rays: Rays):
     t0 = torch.empty(shape, dtype=torch.float32, device=device)
     prim0 = torch.empty(shape, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library().hpt_probe_launch(
-        tables.fold.data_ptr(), *tables.counts, rays.origin.data_ptr(),
-        rays.direction.data_ptr(), t0.data_ptr(), prim0.data_ptr(), n, stream,
-    )
+    with span("hpt.launch.probe"):
+        err = _library().hpt_probe_launch(
+            tables.fold.data_ptr(), *tables.counts, rays.origin.data_ptr(),
+            rays.direction.data_ptr(), t0.data_ptr(), prim0.data_ptr(), n, stream,
+        )
     if err != 0:
         raise RuntimeError(f"primary probe launch failed: cudaError {err}")
     LAUNCHES["primary_probe"] += 1
@@ -295,14 +298,15 @@ def launch_nee(tables: NeeTables, rays: Rays, rng, num_bounces, spp, has_glossy=
     # threads take lane indices from this counter.
     next_lane = torch.zeros(1, dtype=torch.int32, device=device) if primary is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library().hpt_nee_launch(
-        tables.fold.data_ptr(), tables.payload.data_ptr(), tables.lights.data_ptr(),
-        *tables.counts, tables.num_lights,
-        rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
-        _ptr(t0), _ptr(prim0), _ptr(order),
-        radiance.data_ptr(), rng_out.data_ptr(), _ptr(steps), _ptr(words), _ptr(next_lane),
-        H * W, spp, num_bounces, int(has_glossy), int(has_diel), stream,
-    )
+    with span("hpt.launch.nee"):
+        err = _library().hpt_nee_launch(
+            tables.fold.data_ptr(), tables.payload.data_ptr(), tables.lights.data_ptr(),
+            *tables.counts, tables.num_lights,
+            rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
+            _ptr(t0), _ptr(prim0), _ptr(order),
+            radiance.data_ptr(), rng_out.data_ptr(), _ptr(steps), _ptr(words), _ptr(next_lane),
+            H * W, spp, num_bounces, int(has_glossy), int(has_diel), stream,
+        )
     if err != 0:
         raise RuntimeError(f"NEE megakernel launch failed: cudaError {err}")
     global RECORD_LAUNCHES
@@ -367,6 +371,14 @@ def _presort_order(t0):
     return torch.argsort(t0.reshape(-1), stable=True).to(torch.int32)
 
 
+def presorted(tables: NeeTables, rays: Rays):
+    """The probe's primary hits and the lane order they give, in span
+    "hpt.nee.presort": (order int32 [H*W], (t0, prim0))."""
+    with span("hpt.nee.presort"):
+        t0, prim0 = launch_probe(tables, rays)
+        return _presort_order(t0), (t0, prim0)
+
+
 def trace_physical_nee(scene: Scene, rays: Rays, rng, num_bounces: int = 8, spp: int = 1,
                        light_idx=None, kinds=None, presort: bool | None = None,
                        telemetry: bool = False):
@@ -407,8 +419,8 @@ def trace_physical_nee(scene: Scene, rays: Rays, rng, num_bounces: int = 8, spp:
     has_glossy = BRDF_GLOSSY in kinds
     has_diel = BRDF_DIELECTRIC in kinds
     if presort:
-        t0, prim0 = launch_probe(tables, rays)
+        order, primary = presorted(tables, rays)
         return launch_nee(tables, rays, rng, num_bounces, spp, has_glossy, has_diel,
-                          order=_presort_order(t0), primary=(t0, prim0), telemetry=telemetry)
+                          order=order, primary=primary, telemetry=telemetry)
     return launch_nee(tables, rays, rng, num_bounces, spp, has_glossy, has_diel,
                       telemetry=telemetry)

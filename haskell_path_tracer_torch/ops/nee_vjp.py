@@ -79,6 +79,7 @@ import torch
 
 from ..core import linalg
 from ..models.objects import BRDF_DIELECTRIC, BRDF_GLOSSY, BRDF_MATTE, Rays, Scene
+from ..utils.metrics import span
 from . import megakernel as MK
 from . import nee as NE
 from . import rng as rng_ops
@@ -459,17 +460,18 @@ def launch_nee_backward(tables: NE.NeeTables, rays: Rays, rng, g_rad, num_bounce
     d_direction = torch.empty((H, W, 3), dtype=torch.float32, device=device)
     # The replay mode's warps take their lanes from this counter.
     next_lane = torch.zeros(1, dtype=torch.int32, device=device) if words is None else None
-    err = _library().hpt_nee_vjp_launch(
-        tables.fold.data_ptr(), tables.payload.data_ptr(), tables.lights.data_ptr(),
-        *tables.counts, tables.num_lights,
-        rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
-        NE._ptr(t0), NE._ptr(prim0), NE._ptr(order), g_rad.data_ptr(),
-        NE._ptr(words), int(residual_tiles_in_smem(tables)),
-        d_fold.data_ptr(), d_payload.data_ptr(), d_lights.data_ptr(),
-        d_origin.data_ptr(), d_direction.data_ptr(), NE._ptr(next_lane),
-        H * W, spp, num_bounces, int(has_glossy), int(has_diel),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    with span("hpt.launch.nee_backward"):
+        err = _library().hpt_nee_vjp_launch(
+            tables.fold.data_ptr(), tables.payload.data_ptr(), tables.lights.data_ptr(),
+            *tables.counts, tables.num_lights,
+            rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
+            NE._ptr(t0), NE._ptr(prim0), NE._ptr(order), g_rad.data_ptr(),
+            NE._ptr(words), int(residual_tiles_in_smem(tables)),
+            d_fold.data_ptr(), d_payload.data_ptr(), d_lights.data_ptr(),
+            d_origin.data_ptr(), d_direction.data_ptr(), NE._ptr(next_lane),
+            H * W, spp, num_bounces, int(has_glossy), int(has_diel),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"the NEE backward kernel refused its operands: counts {tables.counts}, "
                          f"num_bounces={num_bounces}")
@@ -561,9 +563,8 @@ def trace_physical_nee_diff(scene: Scene, rays: Rays, rng, num_bounces: int = 8,
     if sorted_lanes:
         with torch.no_grad():
             detached = dataclasses.replace(tables, fold=tables.fold.detach())
-            t0, prim0 = NE.launch_probe(
+            order, primary = NE.presorted(
                 detached, Rays(origin=rays.origin.detach(), direction=rays.direction.detach()))
-        order, primary = NE._presort_order(t0), (t0, prim0)
     H, W = rng.shape[:2]
     differentiable = torch.is_grad_enabled() and any(
         x.requires_grad for x in (tables.fold, tables.payload, tables.lights, rays.origin,

@@ -29,6 +29,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils.metrics import span
+
 _INV_2_24 = float(np.float32(1.0 / (1 << 24)))
 
 
@@ -78,9 +80,11 @@ def np_gen_seeds(shape, seed: int | None = None) -> np.ndarray:
 
 
 def gen_seeds(shape, seed: int | None, device) -> torch.Tensor:
-    """Fresh per-pixel SFC32 states, int32 [*shape, 4] on `device`."""
-    words = np.ascontiguousarray(np_gen_seeds(shape, seed)).view(np.int32)
-    return torch.as_tensor(words, device=device)
+    """Fresh per-pixel SFC32 states, int32 [*shape, 4] on `device`: made
+    on the host by `np_gen_seeds`, then uploaded, in span "hpt.rng.seed"."""
+    with span("hpt.rng.seed"):
+        words = np.ascontiguousarray(np_gen_seeds(shape, seed)).view(np.int32)
+        return torch.as_tensor(words, device=device)
 
 
 def reseed(rng_state_shape, accumulator, seed: int | None = None):

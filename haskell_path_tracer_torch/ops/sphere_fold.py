@@ -45,6 +45,7 @@ from .intersect import (
     sphere_occluded_any,
 )
 from ..models.objects import Spheres
+from ..utils.metrics import span
 
 SOURCE = os.path.join(MK.CSRC, "sphere_fold.cu")
 HEADERS = tuple(os.path.join(MK.CSRC, h)
@@ -117,10 +118,11 @@ def launch_nearest_fold(spheres, ray_o, ray_d, eps: float = 0.0):
     MK._check("ray_d", ray_d, torch.float32, (r, 3), device)
     t = torch.empty(r, dtype=torch.float32, device=device)
     prim = torch.empty(r, dtype=torch.int32, device=device)
-    err = _library().hpt_nearest_fold_launch(
-        spheres.data_ptr(), P, ray_o.data_ptr(), ray_d.data_ptr(), eps, t.data_ptr(),
-        prim.data_ptr(), r, torch.cuda.current_stream(device).cuda_stream,
-    )
+    with span("hpt.launch.nearest_fold"):
+        err = _library().hpt_nearest_fold_launch(
+            spheres.data_ptr(), P, ray_o.data_ptr(), ray_d.data_ptr(), eps, t.data_ptr(),
+            prim.data_ptr(), r, torch.cuda.current_stream(device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"nearest-fold launch failed: cudaError {err}")
     LAUNCHES["nearest_fold"] += 1
@@ -148,12 +150,13 @@ def launch_dual_fold(spheres, ray_o, d_bsdf, d_shadow, t_light, light_idx, alive
     prim = torch.empty(r, dtype=torch.int32, device=device)
     occ = torch.empty(r, dtype=torch.int32, device=device)
     live = torch.empty(r + 1, dtype=torch.int32, device=device)  # the live lanes' count and list
-    err = _library().hpt_dual_fold_launch(
-        spheres.data_ptr(), P, ray_o.data_ptr(), d_bsdf.data_ptr(), d_shadow.data_ptr(),
-        t_light.data_ptr(), light_idx.data_ptr(), alive.data_ptr(), eps,
-        t.data_ptr(), prim.data_ptr(), occ.data_ptr(), live.data_ptr(), r,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    with span("hpt.launch.dual_fold"):
+        err = _library().hpt_dual_fold_launch(
+            spheres.data_ptr(), P, ray_o.data_ptr(), d_bsdf.data_ptr(), d_shadow.data_ptr(),
+            t_light.data_ptr(), light_idx.data_ptr(), alive.data_ptr(), eps,
+            t.data_ptr(), prim.data_ptr(), occ.data_ptr(), live.data_ptr(), r,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"dual-fold launch failed: cudaError {err}")
     LAUNCHES["dual_fold"] += 1

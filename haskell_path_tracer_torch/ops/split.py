@@ -34,6 +34,7 @@ import torch
 
 from ..core import linalg
 from ..models.objects import Rays, Scene
+from ..utils.metrics import span
 from . import megakernel as MK
 from . import rng as rng_ops
 from .intersect import EPSILON
@@ -243,12 +244,13 @@ def launch_split(geom, mat, counts, rays, rng, num_bounces, spp, stack_depth):
         raise ValueError("spp and num_bounces must be >= 0")
     radiance = torch.empty((H, W, 3), dtype=torch.float32, device=device)
     rng_out = torch.empty((H, W, 4), dtype=torch.int32, device=device)
-    err = _library().hpt_split_launch(
-        geom.data_ptr(), geom.shape[1], mat.data_ptr(), *counts,
-        rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
-        radiance.data_ptr(), rng_out.data_ptr(), H * W, spp, num_bounces,
-        stack_depth, torch.cuda.current_stream(device).cuda_stream,
-    )
+    with span("hpt.launch.split"):
+        err = _library().hpt_split_launch(
+            geom.data_ptr(), geom.shape[1], mat.data_ptr(), *counts,
+            rays.origin.data_ptr(), rays.direction.data_ptr(), rng.data_ptr(),
+            radiance.data_ptr(), rng_out.data_ptr(), H * W, spp, num_bounces,
+            stack_depth, torch.cuda.current_stream(device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"split kernel launch failed: cudaError {err}")
     LAUNCHES["split_kernel"] += 1

@@ -41,6 +41,7 @@ from ..ops import brdf as brdf_ops
 from ..ops import nee as nee_ops
 from ..ops import rng as rng_ops
 from ..ops import threefry
+from ..utils.metrics import host_read, span
 from ..ops.intersect import (
     CHUNKED_THRESHOLD,
     EPSILON,
@@ -89,12 +90,13 @@ def sample_cosine_hemisphere(normal, u1, u2):
 
 
 def _present_kinds(scene: Scene) -> frozenset:
-    """The BRDF kinds present in the scene, read on the host (one copy from
-    a CUDA device: callers that step often read it once per scene)."""
+    """The BRDF kinds present in the scene, read on the host (one
+    `host_read` per non-empty part, each waiting for a CUDA device: callers
+    that step often read them once per scene)."""
     present = set()
     for part in (scene.spheres, scene.planes, scene.boxes, scene.triangles):
         if part.count:
-            present.update(np.unique(part.material.brdf_kind.cpu().numpy()).tolist())
+            present.update(np.unique(host_read(part.material.brdf_kind)).tolist())
     return frozenset(present)
 
 
@@ -710,14 +712,15 @@ def stateless_states(acc: Accumulator) -> torch.Tensor:
     """The per-lane SFC32 states of the accumulator's next stateless batch:
     threefry words `bits(fold_in(prng_key(seed), iterations), (H, W, 4))`
     after 12 warm-up rounds, `seed` being the accumulator's first rng word
-    read as uint32.  Computed on the accumulator's device; a pure function
-    of (seed word, iterations)."""
+    read as uint32.  Computed on the accumulator's device, in span
+    "hpt.rng.seed"; a pure function of (seed word, iterations)."""
     height, width = acc.rng.shape[:2]
-    key = threefry.fold_in(threefry.prng_key(acc.rng.reshape(-1)[0]), acc.iterations)
-    states = threefry.bits(key, (height, width, 4))
-    for _ in range(12):
-        _, states = rng_ops.sfc32_next(states)
-    return states
+    with span("hpt.rng.seed"):
+        key = threefry.fold_in(threefry.prng_key(acc.rng.reshape(-1)[0]), acc.iterations)
+        states = threefry.bits(key, (height, width, 4))
+        for _ in range(12):
+            _, states = rng_ops.sfc32_next(states)
+        return states
 
 
 def render_batch_physical_stateless(

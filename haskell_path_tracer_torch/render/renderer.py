@@ -4,8 +4,9 @@ Counterpart of ``haskell_path_tracer_tpu/render/renderer.py`` for the
 inline, wavefront and physical algorithms: one sample per step for the first 100
 iterations, then batches of max(30, iterations / 50); every
 `reseed_interval` samples the per-pixel RNGs are reseeded.  PyTorch runs
-eagerly, so there is no compile boundary; a step launches asynchronously on
-the accumulator's device.
+eagerly, so there is no compile boundary; a step's kernels run
+asynchronously on the accumulator's device, but on a CUDA device the step
+waits for the one before it (`Renderer.step`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from ..models.objects import Accumulator, Camera, Scene
 from ..ops import rng as rng_ops
 from ..utils.config import RenderConfig
+from ..utils.metrics import span
 from . import integrator, nee, wavefront
 
 
@@ -93,26 +95,33 @@ class Renderer:
         )
 
     def step(self, scene: Scene, camera: Camera, acc: Accumulator, spp: int = 1):
-        """Render `spp` more samples into the accumulator (asynchronous on
-        a GPU)."""
-        if self.config.kernel == "cuda" and not acc.color.is_cuda:
-            raise ValueError(
-                "kernel='cuda' needs CUDA tensors; the accumulator is on "
-                f"{acc.color.device}"
-            )
-        if self._physical:
-            if self._scene_facts[0] is not scene:
-                self._scene_facts = (
-                    scene, nee._present_kinds(scene), nee.nee_ops.scene_light_indices(scene)
+        """Render `spp` more samples into the accumulator, in span
+        "hpt.render.step".  On a CUDA device the step blocks before its
+        launches: `primary_rays` uploads host scalars (span
+        "hpt.camera.rays"), each a pageable copy that waits for the work
+        queued before it, so the step starts its kernel only once the step
+        before it has finished, and the device idles while the host
+        finishes the rays, packs the tables (span "hpt.nee.tables") and
+        launches."""
+        with span("hpt.render.step"):
+            if self.config.kernel == "cuda" and not acc.color.is_cuda:
+                raise ValueError(
+                    "kernel='cuda' needs CUDA tensors; the accumulator is on "
+                    f"{acc.color.device}"
                 )
-            _, kinds, light_idx = self._scene_facts
-            return self._step(scene, camera, acc, spp, kinds=kinds, light_idx=light_idx)
-        if self._fused:
-            # Glass-free scenes skip the kernel's glass block.
-            return self._step(
-                scene, camera, acc, spp, has_dielectric=scene.has_dielectric()
-            )
-        return self._step(scene, camera, acc, spp)
+            if self._physical:
+                if self._scene_facts[0] is not scene:
+                    self._scene_facts = (
+                        scene, nee._present_kinds(scene), nee.nee_ops.scene_light_indices(scene)
+                    )
+                _, kinds, light_idx = self._scene_facts
+                return self._step(scene, camera, acc, spp, kinds=kinds, light_idx=light_idx)
+            if self._fused:
+                # Glass-free scenes skip the kernel's glass block.
+                return self._step(
+                    scene, camera, acc, spp, has_dielectric=scene.has_dielectric()
+                )
+            return self._step(scene, camera, acc, spp)
 
     def batch_size(self, iterations: int) -> int:
         """Single samples for the first 100 iterations, then batches of
@@ -139,7 +148,9 @@ class Renderer:
         progress: bool = False,
     ) -> Accumulator:
         """Render `total_spp` samples with the batching and reseeding
-        schedule, returning the final accumulator."""
+        schedule, returning the final accumulator.  The accumulator's rng
+        states are made on the host first (span "hpt.rng.seed"), then each
+        step runs in span "hpt.render.step"."""
         acc = self.init_accumulator(seed=seed)
         done = 0
         while done < total_spp:
